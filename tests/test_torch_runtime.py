@@ -1,0 +1,129 @@
+"""The port's compress path (``x3tpu_torch.parallel.runtime``) on the CPU:
+raw streams and containers equal to the reference-format oracles, the
+capacity retry, x3tpu's capacity heuristic, no jax in the import, and no
+silent CPU fallback for ``device="cuda"``."""
+
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from x3tpu import host, spec
+from x3tpu.config import CodecCaps, X3Params
+from x3tpu.parallel import blocks as blk
+from x3tpu.parallel import runtime as jruntime
+import x3tpu_torch
+from x3tpu_torch import codec
+from x3tpu_torch.parallel import runtime
+
+from conftest import GOLDEN
+from test_torch_codec import one_thread  # noqa: F401  (autouse)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def test_compress_one_block_is_raw_stream():
+    data = (GOLDEN / "text_tiny.bin").read_bytes()
+    assert x3tpu_torch.compress(data, device="cpu") == spec.encode(data)
+
+
+def test_compress_container_matches_host():
+    """Three blocks in one wave: the container holds per-block streams equal
+    to the native host codec's, and decodes back."""
+    data = (GOLDEN / "text_small.bin").read_bytes()[:1100]
+    params = X3Params(max_match_count=4, window=1024)
+    stats = []
+    out = x3tpu_torch.compress(data, params, block_bytes=512,
+                               stats_out=stats, device="cpu")
+    parts = blk.split_blocks(data, 512)
+    assert len(parts) == 3
+    payloads = [host.encode(p, params) for p in parts]
+    assert out == blk.pack_container(payloads, [len(p) for p in parts], 512)
+    assert b"".join(host.decode(p) for p in payloads) == data
+    assert stats[0].events.sum() > 0
+
+
+def test_overflow_retry_gives_same_bytes(monkeypatch):
+    """Capacities that overflow: the wave is re-run at doubled capacities
+    and the output is the exact stream."""
+    data = (GOLDEN / "text_small.bin").read_bytes()[:300]
+    params = X3Params(max_match_count=4, window=256)
+    caps = CodecCaps(dict_cap=48, pair_cap=96, ctx_items_cap=32,
+                     ctx0_items_cap=32, block_bytes=1024)
+    flagged = _flags_of_each_attempt(monkeypatch)
+    out = x3tpu_torch.compress(data, params, caps=caps, device="cpu")
+    assert flagged[0] and not flagged[-1], flagged
+    assert out == host.encode(data, params)
+
+
+def test_out_overflow_retry_gives_same_bytes(monkeypatch):
+    """A stream longer than the output buffer: its words past the buffer
+    are dropped and flagged, and the retry doubles the buffer's headroom
+    (scaling the state capacities alone would not) and gives the exact
+    stream."""
+    data = np.random.default_rng(9).integers(0, 256, 180, np.uint8).tobytes()
+    params = X3Params(max_match_count=4, window=256)
+    caps = CodecCaps(dict_cap=256, pair_cap=1024, ctx_items_cap=64,
+                     block_bytes=256, out_words_factor=1)
+    assert len(host.encode(data, params)) > 4 * caps.out_words
+    flagged = _flags_of_each_attempt(monkeypatch)
+    out = x3tpu_torch.compress(data, params, caps=caps, device="cpu")
+    assert flagged == [["out"], []], flagged
+    assert out == host.encode(data, params)
+
+
+def _flags_of_each_attempt(monkeypatch):
+    """The overflow flags that fired on each attempt of compress's wave,
+    recorded as the runtime encodes."""
+    flagged = []
+    encode = runtime._encode_one_device
+
+    def recording(*args):
+        out = encode(*args)
+        flagged.append([f for f in out[4]._fields
+                        if bool(getattr(out[4], f).any())])
+        return out
+
+    monkeypatch.setattr(runtime, "_encode_one_device", recording)
+    return flagged
+
+
+def test_caps_for_block_matches_x3tpu():
+    for block in (1, 1000, 1 << 14, 100_000, 1 << 20, 3 << 20, 5 << 20,
+                  16 << 20):
+        for window in (1024, 8192, 32768):
+            assert runtime.caps_for_block(block, window=window) == \
+                jruntime.caps_for_block(block, window=window), (block, window)
+
+
+def test_import_and_compress_without_jax():
+    code = (
+        "import sys\n"
+        "import x3tpu_torch\n"
+        "from x3tpu import spec\n"
+        "data = b'abracadabra ' * 20\n"
+        "assert x3tpu_torch.compress(data, device='cpu') == spec.encode(data)\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_cuda_without_a_card_raises():
+    """device="cuda" never falls back to the plain encoder."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        x3tpu_torch.compress(b"abc", device="cuda")
+    from x3tpu_torch.vm import driver
+
+    text, tlen = codec.pack_blocks([b"abc"], X3Params(), CodecCaps(
+        block_bytes=1024))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        driver.encode_blocks_cuda(torch.from_numpy(text),
+                                  torch.from_numpy(tlen), X3Params(),
+                                  CodecCaps(block_bytes=1024))

@@ -1,0 +1,43 @@
+// Host build of the encoder core (x3_core.cuh) with one thread per lane:
+// the scan, the probe and the reductions run as plain serial loops
+// (x3::ParHost).  It exists for the CPU tests, which hold the kernel's
+// per-lane logic against the plain PyTorch encoder without a GPU.  Build:
+// g++ -O2 -ffp-contract=off -std=c++17 -shared -fPIC.
+#include <vector>
+
+#include "x3_core.cuh"
+
+extern "C" {
+
+// Same arguments and outputs as x3_encode in x3_encoder.cu, in host memory;
+// words [lanes, out_words] must be zeroed.
+int x3h_encode(const uint8_t* text, const int32_t* tlen, int lanes,
+               long long tb, int T, int W, int f1, int f2, int nl, int D,
+               int pair_cap, int items1, int items0, int small_cap,
+               int promo_rows, int out_words, uint32_t* words,
+               int32_t* byte_lens, int32_t* counts, float* sizes,
+               int32_t* flags) {
+  const x3::Caps caps{D, pair_cap, items1, items0, small_cap, promo_rows,
+                      out_words};
+  const x3::Params prm{T, W, f1, f2, nl};
+  const x3::Layout lay = x3::make_layout(caps);
+  std::vector<int32_t> scratch;
+  for (int lane = 0; lane < lanes; ++lane) {
+    scratch.assign(lay.words, 0);
+    x3::LaneIO io;
+    io.text = text + (long long)lane * tb;
+    io.tlen = tlen[lane];
+    io.scr = scratch.data();
+    io.words = words + (long long)lane * out_words;
+    io.byte_len = byte_lens + lane;
+    io.counts = counts + lane * x3::E_LAST;
+    io.sizes = sizes + lane * x3::E_LAST;
+    io.flags = flags + lane;
+    x3::Lane R;
+    x3::Shared sh;
+    x3::encode_lane(x3::ParHost(), prm, caps, lay, io, R, sh);
+  }
+  return 0;
+}
+
+}  // extern "C"

@@ -1,0 +1,36 @@
+"""Lane-parallel adaptive frequency models (``x3tpu.models.adaptive``,
+encoder side; ac.c:200-273).  A model is a freq vector [L, M]."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from x3tpu_torch.ops import iota
+
+
+def model_encode_stats(
+    freqs: torch.Tensor, sym: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(low_f, span, total) for coding ``sym`` [L] from ``freqs`` [L, M]."""
+    M = freqs.shape[1]
+    low = (freqs * (iota(M, freqs.device)[None, :] < sym[:, None])).sum(1)
+    span = freqs.gather(1, sym.clamp(max=M - 1)[:, None])[:, 0]
+    return low, span, freqs.sum(1)
+
+
+def model_inc(freqs: torch.Tensor, sym: torch.Tensor,
+              active: torch.Tensor) -> torch.Tensor:
+    """freq[sym] += 1 per active lane (inc_model, ac.c:215-228), in place;
+    returns ``freqs``."""
+    M = freqs.shape[1]
+    lane = iota(freqs.shape[0], freqs.device)
+    return freqs.index_put_((lane, sym.clamp(max=M - 1)),
+                            active.to(freqs.dtype), accumulate=True)
+
+
+def f32_prob(span: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+    """f32 probability matching C float semantics ((float)freq / total,
+    ac.c:108-113): one correctly rounded f32 division."""
+    return span.to(torch.float32) / total.to(torch.float32)

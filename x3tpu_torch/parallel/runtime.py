@@ -1,0 +1,163 @@
+"""Compression runtime of the port (the encode path of
+``x3tpu.parallel.runtime``): block splitting, capacity heuristics, waves of
+independent blocks on one device, overflow auto-retry, container framing.
+
+The engine follows the device and nothing else: ``device="cuda"`` runs the
+CUDA encoder kernel (``x3tpu_torch.vm.driver``) and raises without a card,
+``device="cpu"`` runs the plain PyTorch encoder (``x3tpu_torch.codec``).
+A configuration the kernel cannot run raises; nothing is demoted.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from x3tpu.config import CodecCaps, X3Params
+from x3tpu.parallel import blocks as blk
+from x3tpu.utils.stats import CodecStats
+from x3tpu_torch import codec
+from x3tpu_torch.config import resolve_device
+
+
+MAX_RETRIES = 3  # capacity doublings before an overflow is raised
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, (n - 1)).bit_length()
+
+
+def caps_for_block(block_bytes: int, ratio_hint: float = 1.0,
+                   window: int = 8192) -> CodecCaps:
+    """Capacities for a block size: x3tpu's heuristic (runtime.py:91-153,
+    where the measurements behind each number are recorded), kept equal so
+    that both packages retry at the same points."""
+    d = int(np.clip(_pow2(block_bytes // 16), 1 << 10, 1 << 16))
+    if d > 24576:
+        d = 24576
+    if window > 8192:
+        d = min(d, 6144)
+    items = int(np.clip(_pow2(d // 4), 256, 2048))
+    if d <= 8192:
+        items = min(items, 640)
+    elif block_bytes <= 4 << 20:
+        items = 8192
+    else:
+        items = 4096
+    pair = min((32 if d > 8192 else 16) * d,
+               1 << (20 if block_bytes > 4 << 20 else 19))
+    items0 = min(items, 2048 if block_bytes <= 4 << 20 else 4096)
+    return CodecCaps(
+        dict_cap=d,
+        pair_cap=pair,
+        ctx_items_cap=items,
+        ctx0_items_cap=items0,
+        ctx_promo_rows=min(max(pair // 8, 16), 4096),
+        block_bytes=block_bytes,
+    )
+
+
+@dataclasses.dataclass
+class RunResult:
+    payloads: List[bytes]
+    stats: CodecStats
+
+
+def _wave_lanes(nblocks: int, lanes_per_device: int = 0) -> int:
+    """Lanes per wave on one device: the blocks, bounded by
+    lanes_per_device (0 = unbounded)."""
+    lanes = nblocks
+    if lanes_per_device > 0:
+        lanes = min(lanes, lanes_per_device)
+    return max(lanes, 1)
+
+
+def _encode_one_device(text: np.ndarray, tlen: np.ndarray, params: X3Params,
+                       caps: CodecCaps, device: torch.device):
+    """Encode one packed wave on ``device``: the CUDA kernel for a CUDA
+    device, the plain PyTorch encoder for the CPU."""
+    text_t = torch.from_numpy(text).to(device)
+    tlen_t = torch.from_numpy(tlen).to(device)
+    if device.type == "cuda":
+        from x3tpu_torch.vm import driver
+
+        return driver.encode_blocks_cuda(text_t, tlen_t, params, caps)
+    return codec.encode_blocks_chunked(text_t, tlen_t, params, caps)
+
+
+def encode_wave(
+    blocks_in: Sequence[bytes],
+    params: X3Params,
+    caps: CodecCaps,
+    device="cuda",
+) -> RunResult:
+    """Encode one wave of blocks with capacity auto-retry: any lane
+    overflow re-runs the wave at doubled capacities, up to MAX_RETRIES
+    times (the output stays the exact reference-format stream)."""
+    dev = resolve_device(device)
+    nblocks = len(blocks_in)
+    lanes = _wave_lanes(nblocks)
+    padded = list(blocks_in) + [b""] * (lanes - nblocks)
+    for attempt in range(MAX_RETRIES + 1):
+        text, tlen = codec.pack_blocks(padded, params, caps)
+        words, byte_lens, counts, sizes, overflow = _encode_one_device(
+            text, tlen, params, caps, dev)
+        try:
+            codec._check_overflow(overflow)
+            break
+        except codec.X3CapacityError as e:
+            if attempt == MAX_RETRIES:
+                raise
+            caps = caps.scaled(2)
+            if "out" in e.flags:
+                # scaled() grows only the state caps; an output-buffer
+                # overflow needs headroom growth too
+                caps = dataclasses.replace(
+                    caps, out_words_factor=caps.out_words_factor * 2
+                )
+    payloads = codec.streams_from_words(words, byte_lens, nblocks)
+    stats = CodecStats.from_arrays(
+        counts[:nblocks].cpu().numpy(), sizes[:nblocks].cpu().numpy()
+    )
+    return RunResult(payloads, stats)
+
+
+def compress(
+    data: bytes,
+    params: X3Params = X3Params(),
+    block_bytes: Optional[int] = None,
+    caps: Optional[CodecCaps] = None,
+    stats_out: Optional[list] = None,
+    lanes_per_device: int = 32,
+    device="cuda",
+) -> bytes:
+    """Compress ``data``.  Single block -> raw reference-format stream;
+    multiple blocks -> X3TC container with per-block reference-format
+    payloads (``x3tpu.parallel.blocks``)."""
+    if block_bytes is None:
+        block_bytes = max(len(data), 1)
+    parts = blk.split_blocks(data, block_bytes)
+    if caps is None:
+        caps = caps_for_block(
+            min(block_bytes, max(len(max(parts, key=len)), 1024)),
+            window=params.window,
+        )
+    wave = _wave_lanes(len(parts), lanes_per_device)
+    all_payloads: List[bytes] = []
+    all_stats = CodecStats.zero()
+    for i in range(0, len(parts), wave):
+        res = encode_wave(parts[i : i + wave], params, caps, device=device)
+        all_payloads.extend(res.payloads)
+        all_stats = all_stats.merge(res.stats)
+    if stats_out is not None:
+        stats_out.append(all_stats)
+    if (len(all_payloads) == 1
+            # a raw stream that begins with the container magic would be
+            # misread as a container; wrap it
+            and not blk.is_container(all_payloads[0])):
+        return all_payloads[0]
+    return blk.pack_container(all_payloads, [len(p) for p in parts],
+                              block_bytes)
