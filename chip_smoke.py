@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (x3tpu_torch) on one NVIDIA GPU.
 
-Run from the root of the repository: ``python3 chip_smoke.py``.  In order,
-stopping with a non-zero exit at the first failure:
+Run from the root of the repository: ``python3 chip_smoke.py``.  It
+imports nothing of the JAX package.  In order, stopping with a non-zero
+exit at the first failure:
 
-1. environment: versions, the card's name and power limit, a CUDA device;
-2. build of the CUDA encoder kernel (csrc/x3_encoder.cu) with nvcc;
-3. the kernel against its plain PyTorch version on the card: the golden
-   inputs under the four golden paramsets (and the golden streams), small
-   capacities where overflow flags fire, and magic factor 2;
-4. the main path, ``x3tpu_torch.compress(..., device="cuda")`` at 32 and
-   128 lanes of 16 KiB: launch counts, every payload against the native host
-   codec, the round trip through its decoder, and the container framing;
-5. times: compress, the kernel alone, and the plain version, with the
-   kernel against the plain version at the main path's shape.
+1. environment, then the build of both kernels (csrc/x3_encoder.cu and
+   csrc/x3_decoder.cu, one nvcc each, side by side);
+2. the encoder kernel K1 against its plain PyTorch version on the card:
+   the golden inputs of each golden paramset (the 20 golden streams byte
+   for byte), small capacities where every overflow flag fires, and
+   magic factor 2;
+3. the decoder kernel K2 against its plain PyTorch version on the card:
+   the 20 golden streams (each must give its input) and K1's tiny-caps
+   streams, where the state flags fire while decoding;
+4. corrupt streams (random bytes, a golden stream cut in half, zeros):
+   K2 and the plain decoder end in the same error, and a decode after
+   them still works;
+5. the main path at 32 and 128 lanes of 16 KiB:
+   ``x3tpu_torch.compress(..., device="cuda")`` then
+   ``x3tpu_torch.decompress(..., device="cuda")``, each run with the
+   launch counts set to 0 just before it and read just after: the data
+   comes back, and the decoder's event counts equal the encoder's;
+6. times: compress and decompress, each kernel alone, and both plain
+   versions against the kernels at 32 lanes of 4 KiB.
 
 The last line is one JSON object, {"ok": true, "device": {...}}; the line
-before it lists the kernels with their launches, errors and times.
+before it lists the kernels with their launches, errors, times and bounds.
 """
 
 import json
@@ -28,7 +38,9 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 BLOCK = 16 * 1024
+PLAIN_BLOCK = 4 * 1024              # the plain versions' depth
 SIZE_RTOL, SIZE_ATOL = 1e-5, 1e-3   # f32 size estimates (tests/test_vm.py)
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM peak device-memory rate
 
 
 def phase(name, t0):
@@ -43,6 +55,13 @@ def corpus(nbytes: int) -> bytes:
         paths.update(ROOT.glob(pattern))
     text = b"".join(p.read_bytes() for p in sorted(paths))
     return (text * (nbytes // len(text) + 1))[:nbytes]
+
+
+def bound_ms(nbytes: int) -> float:
+    """The least time the card could take to move ``nbytes`` (each input
+    byte read once, each output byte written once) at its peak
+    device-memory rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def main() -> int:
@@ -69,57 +88,95 @@ def main() -> int:
     import numpy as np
 
     import x3tpu_torch
-    from x3tpu import host
-    from x3tpu.config import CodecCaps, X3Params
-    from x3tpu.parallel import blocks as blk
     from x3tpu_torch import codec
+    from x3tpu_torch.config import CodecCaps, X3Params
+    from x3tpu_torch.parallel import blocks as blk
     from x3tpu_torch.parallel import runtime
     from x3tpu_torch.vm import driver
 
     phase("environment", t0)
 
-    # ------------------------------------------------------------ 2. build
     t0 = time.perf_counter()
-    lib = driver.build()
+    libs = driver.build()
     phase("build", t0)
-    print(f"built {lib.relative_to(ROOT)}", flush=True)
+    for kernel, lib in libs.items():
+        print(f"built {kernel}: {lib.relative_to(ROOT)}", flush=True)
     for line in driver.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or line.startswith("["):
             print(f"ptxas: {line.strip()}", flush=True)
 
-    # ------------------------------------- 3. kernel against plain version
-    max_err = [0.0]
+    max_err = {"encoder": 0.0, "decoder": 0.0}
 
-    def against_plain(label, blocks, params, caps):
-        """Kernel and plain version on the same CUDA tensors; everything
-        must agree.  Returns the kernel's result and both times."""
-        text, tlen = codec.pack_blocks(blocks, params, caps)
-        text, tlen = torch.from_numpy(text).to(dev), torch.from_numpy(tlen).to(dev)
+    def timed(fn):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        ours = driver.encode_blocks_cuda(text, tlen, params, caps)
+        out = fn()
         torch.cuda.synchronize()
-        kernel_s = time.perf_counter() - t
-        t = time.perf_counter()
-        ref = codec.encode_blocks_chunked(text, tlen, params, caps)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t
-        for what, a, b in zip(("words", "byte_lens", "counts"), ours, ref):
+        return out, time.perf_counter() - t
+
+    def same(label, kernel, ours, ref, names):
+        """Kernel and plain results must agree: the integer outputs and the
+        flags exactly, the f32 sizes within the tolerance."""
+        for what, a, b in zip(names, ours, ref):
             if not torch.equal(a, b):
                 raise AssertionError(f"{label}: {what} differ from the plain "
                                      f"version")
-        err = (ours[3] - ref[3]).abs().max().item() if len(blocks) else 0.0
+        err = (ours[3] - ref[3]).abs().max().item() if ours[3].numel() else 0.0
         if not torch.allclose(ours[3], ref[3], rtol=SIZE_RTOL, atol=SIZE_ATOL):
             raise AssertionError(f"{label}: sizes differ by {err}")
-        max_err[0] = max(max_err[0], err)
+        max_err[kernel] = max(max_err[kernel], err)
         for f in ref[4]._fields:
             if not torch.equal(getattr(ours[4], f), getattr(ref[4], f)):
                 raise AssertionError(f"{label}: overflow flag {f} differs")
-        print(f"{label}: {len(blocks)} lanes match the plain version "
+        return err
+
+    def against_plain(label, blocks, params, caps):
+        """K1 and the plain encoder on the same CUDA tensors.  Returns the
+        kernel's result and both times."""
+        text, tlen = codec.pack_blocks(blocks, params, caps)
+        text, tlen = torch.from_numpy(text).to(dev), torch.from_numpy(tlen).to(dev)
+        ours, kernel_s = timed(
+            lambda: driver.encode_blocks_cuda(text, tlen, params, caps))
+        ref, plain_s = timed(
+            lambda: codec.encode_blocks_chunked(text, tlen, params, caps))
+        err = same(label, "encoder", ours, ref,
+                   ("words", "byte_lens", "counts"))
+        print(f"{label}: {len(blocks)} lanes match the plain encoder "
               f"(kernel {kernel_s:.3f} s, plain {plain_s:.3f} s, "
               f"max size err {err:.3g})", flush=True)
         return ours, kernel_s, plain_s
 
+    def as_i32(words):
+        """u32 values held in int64 -> the same bits as int32."""
+        return torch.where(words >= 1 << 31, words - (1 << 32),
+                           words).to(torch.int32)
+
+    def pack_streams(streams):
+        iw = max(1, max((len(s) + 3) // 4 for s in streams))
+        words = np.zeros((len(streams), iw), np.uint32)
+        for i, s in enumerate(streams):
+            arr = np.frombuffer(s + b"\0" * (-len(s) % 4), "<u4")
+            words[i, : len(arr)] = arr
+        lens = np.array([len(s) for s in streams], np.int32)
+        return (torch.from_numpy(words.view(np.int32)).to(dev),
+                torch.from_numpy(lens).to(dev))
+
+    def against_plain_dec(label, words, byte_lens, caps):
+        """K2 and the plain decoder on the same CUDA tensors (``words``
+        i32 [L, IW], the streams' u32 words).  Returns the kernel's result
+        and both times."""
+        ours, kernel_s = timed(
+            lambda: driver.decode_blocks_cuda(words, byte_lens, caps))
+        ref, plain_s = timed(lambda: codec.decode_blocks_chunked(
+            words.to(torch.int64) & 0xFFFFFFFF, byte_lens.to(torch.int64),
+            caps))
+        err = same(label, "decoder", ours, ref, ("out", "out_lens", "counts"))
+        print(f"{label}: {words.shape[0]} lanes match the plain decoder "
+              f"(kernel {kernel_s:.3f} s, plain {plain_s:.3f} s, "
+              f"max size err {err:.3g})", flush=True)
+        return ours, kernel_s, plain_s
+
+    # ------------------------------------------------ 2. K1 against plain
     t0 = time.perf_counter()
     golden = ROOT / "tests" / "golden"
     names = sorted(p.stem for p in golden.glob("*.bin"))
@@ -133,19 +190,23 @@ def main() -> int:
     }
     small = CodecCaps(dict_cap=1 << 10, pair_cap=1 << 13, ctx_items_cap=192,
                       block_bytes=1 << 15)
-    checked = 0
+    golden_cases = []   # (stream, input) of every golden .x3
     for pname, params in paramsets.items():
-        out, _, _ = against_plain(f"golden {pname}", inputs, params, small)
-        streams = codec.streams_from_words(out[0], out[1], len(inputs))
-        for n, stream in zip(names, streams):
-            ref = golden / f"{n}.{pname}.x3"
-            if ref.exists():
-                if stream != ref.read_bytes():
-                    raise AssertionError(f"{n}.{pname}: not the golden stream")
-                checked += 1
-    if checked != 20:
-        raise AssertionError(f"{checked} golden streams checked, want 20")
-    print(f"golden: {checked} streams byte-identical", flush=True)
+        # the inputs with a golden stream under this paramset
+        refs = [(n, data, golden / f"{n}.{pname}.x3")
+                for n, data in zip(names, inputs)
+                if (golden / f"{n}.{pname}.x3").exists()]
+        out, _, _ = against_plain(f"golden {pname}", [d for _, d, _ in refs],
+                                  params, small)
+        streams = codec.streams_from_words(out[0], out[1], len(refs))
+        for (n, data, ref), stream in zip(refs, streams):
+            if stream != ref.read_bytes():
+                raise AssertionError(f"{n}.{pname}: not the golden stream")
+            golden_cases.append((stream, data))
+    if len(golden_cases) != 20:
+        raise AssertionError(f"{len(golden_cases)} golden streams checked, "
+                             f"want 20")
+    print("golden: 20 streams byte-identical", flush=True)
 
     # tests/test_vm.py's six blocks and, between two of them, random bytes
     # whose stream outgrows the output buffer (out_words = block_bytes / 4
@@ -161,113 +222,234 @@ def main() -> int:
     tiny = CodecCaps(dict_cap=128, pair_cap=256, ctx_items_cap=24,
                      ctx0_items_cap=24, ctx_small_cap=8, ctx_promo_rows=4,
                      block_bytes=1200, out_words_factor=1)
-    out, _, _ = against_plain("tiny caps", vm_blocks,
-                              X3Params(max_match_count=4, window=256), tiny)
-    fired = {f: getattr(out[4], f).nonzero().flatten().tolist()
-             for f in out[4]._fields}
+    tiny_out, _, _ = against_plain("tiny caps", vm_blocks,
+                                   X3Params(max_match_count=4, window=256),
+                                   tiny)
+    fired = {f: getattr(tiny_out[4], f).nonzero().flatten().tolist()
+             for f in tiny_out[4]._fields}
     if not all(fired.values()) or fired["out"] != [3]:
         raise AssertionError(f"tiny caps: lanes flagged {fired}, want every "
                              f"flag to fire and out on lane 3 alone")
     print(f"tiny caps: lanes flagged: {fired}", flush=True)
-    against_plain("magic_factor2=2", [text_small, inputs[names.index("c_source")]],
+    against_plain("magic_factor2=2",
+                  [text_small, inputs[names.index("c_source")][:PLAIN_BLOCK]],
                   X3Params(magic_factor2=2), small)
-    phase("kernel vs plain", t0)
+    phase("K1 vs plain", t0)
 
-    # ---------------------------------------------------------- 4. main path
+    # ------------------------------------------------ 3. K2 against plain
+    t0 = time.perf_counter()
+    words, byte_lens = pack_streams([s for s, _ in golden_cases])
+    out, _, _ = against_plain_dec("golden streams", words, byte_lens, small)
+    for i, (_, data) in enumerate(golden_cases):
+        if out[0][i, : out[1][i]].cpu().numpy().tobytes() != data:
+            raise AssertionError(f"golden stream {i} does not decode to its "
+                                 f"input")
+    print("golden: 20 streams decode to their inputs", flush=True)
+    # K1's tiny-caps streams as the encoder left them: lane 3's lost its
+    # tail to the output overflow (byte_lens counts past the buffer)
+    tiny_dec, _, _ = against_plain_dec(
+        "tiny caps streams", as_i32(tiny_out[0]), tiny_out[1].to(torch.int32),
+        tiny)
+    fired = {f: getattr(tiny_dec[4], f).nonzero().flatten().tolist()
+             for f in tiny_dec[4]._fields}
+    if not all(fired[f] for f in ("dict", "ctx0", "ctx1", "pairs")):
+        raise AssertionError(f"tiny caps decode: lanes flagged {fired}, "
+                             f"want the four state flags to fire")
+    print(f"tiny caps decode: lanes flagged: {fired}", flush=True)
+    phase("K2 vs plain", t0)
+
+    # ------------------------------------------------- 4. corrupt streams
+    t0 = time.perf_counter()
+    half = (golden / "text_small.t15_w8.x3").read_bytes()
+    corrupt = {
+        # random bytes and zeros decode to events that emit nothing; at a
+        # 1 KiB block the event bound ends them
+        "random": (np.random.default_rng(11).integers(
+            0, 256, 4096, np.uint8).tobytes(), 4096, 1024),
+        "zeros": (bytes(64), 4096, 1024),
+        # the first half decodes, then the rest is read past the end
+        "half": (half[: len(half) // 2], len(text_small), len(text_small)),
+    }
+
+    def outcome(blob, device):
+        try:
+            return f"returned {len(runtime.decompress(blob, device=device))} bytes"
+        except (ValueError, codec.X3CapacityError) as e:
+            return f"{type(e).__name__}: {e}"
+
+    for label, (stream, orig, block) in corrupt.items():
+        blob = blk.pack_container([stream], [orig], block)
+        got, kernel_s = timed(lambda: outcome(blob, "cuda"))
+        want, plain_s = timed(lambda: outcome(blob, "cpu"))
+        if got != want or got.startswith("returned"):
+            raise AssertionError(f"corrupt {label}: K2 {got!r}, plain "
+                                 f"decoder {want!r}")
+        print(f"corrupt {label}: both raise {got!r} (K2 {kernel_s:.3f} s, "
+              f"plain on the host CPU {plain_s:.3f} s)", flush=True)
+    stream, data = golden_cases[-1]
+    if x3tpu_torch.decompress(stream, device="cuda") != data:
+        raise AssertionError("a decode after the corrupt streams failed")
+    print("a decode after the corrupt streams succeeds", flush=True)
+    phase("corrupt streams", t0)
+
+    # ---------------------------------------------------------- 5. main path
     t0 = time.perf_counter()
     shapes = (32, 128)
     data = {lanes: corpus(lanes * BLOCK) for lanes in shapes}
-    launches = 0
+    launches = {"encoder": 0, "decoder": 0}
     results = {}
     for lanes in shapes:
-        driver.LAUNCHES["encoder"] = 0
-        out = x3tpu_torch.compress(data[lanes], block_bytes=BLOCK,
-                                   lanes_per_device=lanes, device="cuda")
-        n = driver.LAUNCHES["encoder"]
-        if n < 1:
-            raise AssertionError(f"{lanes} lanes: the encoder kernel was not "
-                                 f"launched on the main path")
-        launches += n
-        results[lanes] = out
+        enc_stats, dec_stats = [], []
+        driver.LAUNCHES["encoder"] = driver.LAUNCHES["decoder"] = 0
+        blob = x3tpu_torch.compress(data[lanes], block_bytes=BLOCK,
+                                    lanes_per_device=lanes,
+                                    stats_out=enc_stats, device="cuda")
+        n_enc = driver.LAUNCHES["encoder"]
+        driver.LAUNCHES["encoder"] = driver.LAUNCHES["decoder"] = 0
+        back = x3tpu_torch.decompress(blob, lanes_per_device=lanes,
+                                      stats_out=dec_stats, device="cuda")
+        n_dec = driver.LAUNCHES["decoder"]
+        if n_enc < 1 or n_dec < 1:
+            raise AssertionError(f"{lanes} lanes: launches {n_enc} (K1), "
+                                 f"{n_dec} (K2) on the main path")
+        launches["encoder"] += n_enc
+        launches["decoder"] += n_dec
+        results[lanes] = (blob, back, enc_stats[0], dec_stats[0])
     phase("main path", t0)
 
     t0 = time.perf_counter()
     for lanes in shapes:
-        parts = blk.split_blocks(data[lanes], BLOCK)
-        payloads, orig_lens, _, _, _ = blk.unpack_container(results[lanes])
-        if len(payloads) != lanes:
-            raise AssertionError(f"{lanes} lanes: {len(payloads)} payloads")
-        for i, (part, payload) in enumerate(zip(parts, payloads)):
-            if payload != host.encode(part):
-                raise AssertionError(f"{lanes} lanes: block {i} differs from "
-                                     f"x3tpu.host.encode")
-            if host.decode(payload) != part:
-                raise AssertionError(f"{lanes} lanes: block {i} does not "
-                                     f"decode back")
-        if results[lanes] != blk.pack_container(payloads, orig_lens, BLOCK):
+        blob, back, enc_stats, dec_stats = results[lanes]
+        if back != data[lanes]:
+            raise AssertionError(f"{lanes} lanes: decompress(compress(data)) "
+                                 f"is not the data")
+        if not np.array_equal(enc_stats.events, dec_stats.events):
+            raise AssertionError(f"{lanes} lanes: decode counts "
+                                 f"{dec_stats.events} != encode counts "
+                                 f"{enc_stats.events}")
+        payloads, orig_lens, _ = blk.unpack_container(blob)
+        if len(payloads) != lanes or blob != blk.pack_container(
+                payloads, orig_lens, BLOCK):
             raise AssertionError(f"{lanes} lanes: container framing differs")
-        print(f"main path {lanes} x 16 KiB: {lanes} payloads equal "
-              f"x3tpu.host.encode and decode back; ratio "
-              f"{len(results[lanes]) / len(data[lanes]):.4f}", flush=True)
+        print(f"main path {lanes} x 16 KiB: {lanes} blocks round trip, "
+              f"event counts {enc_stats.events.tolist()} both ways; ratio "
+              f"{len(blob) / len(data[lanes]):.4f}", flush=True)
     phase("main path checks", t0)
 
-    # ---------------------------------------------------------------- 5. times
+    # ---------------------------------------------------------------- 6. times
     t0 = time.perf_counter()
     caps = runtime.caps_for_block(BLOCK)
     params = X3Params()
     lane_mib = driver.scratch_words(caps) * 4 / 2**20
     print(f"device state per lane: {lane_mib:.2f} MiB of scratch "
           f"(caps {caps})", flush=True)
-    timing = {}
+
+    def kernel_ms(fn, runs=3):
+        """Median device time of a wrapper call (CUDA events; scratch and
+        output allocation included)."""
+        times = []
+        for _ in range(runs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times), times
+
+    timing, bounds = {}, {}
     for lanes in shapes:
-        runs = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            x3tpu_torch.compress(data[lanes], block_bytes=BLOCK,
-                                 lanes_per_device=lanes, device="cuda")
-            torch.cuda.synchronize()
-            runs.append(time.perf_counter() - t)
+        blob = results[lanes][0]
+        row = {}
+        for what, fn in (
+                ("compress", lambda: x3tpu_torch.compress(
+                    data[lanes], block_bytes=BLOCK, lanes_per_device=lanes,
+                    device="cuda")),
+                ("decompress", lambda: x3tpu_torch.decompress(
+                    blob, lanes_per_device=lanes, device="cuda"))):
+            runs = [timed(fn)[1] for _ in range(3)]
+            row[what] = statistics.median(runs)
+            row[what + "_runs"] = runs
         text, tlen = codec.pack_blocks(blk.split_blocks(data[lanes], BLOCK),
                                        params, caps)
         text, tlen = torch.from_numpy(text).to(dev), torch.from_numpy(tlen).to(dev)
         torch.cuda.reset_peak_memory_stats()
-        kruns = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            driver.encode_blocks_cuda(text, tlen, params, caps)
-            torch.cuda.synchronize()
-            kruns.append(time.perf_counter() - t)
-        timing[lanes] = (statistics.median(runs), statistics.median(kruns))
+        enc = driver.encode_blocks_cuda(text, tlen, params, caps)
+        row["K1"], row["K1_runs"] = kernel_ms(
+            lambda: driver.encode_blocks_cuda(text, tlen, params, caps))
+        payloads = blk.unpack_container(blob)[0]
+        words, byte_lens = pack_streams(payloads)
+        dec = driver.decode_blocks_cuda(words, byte_lens, caps)
+        row["K2"], row["K2_runs"] = kernel_ms(
+            lambda: driver.decode_blocks_cuda(words, byte_lens, caps))
+        row["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        # what this run's data needs: each block's bytes and stream once,
+        # plus the per-lane lengths, counts, sizes and flags (4+20+20+4 B)
+        raw, packed = int(tlen.sum()), int(enc[1].sum())
+        if int(dec[1].sum()) != raw:
+            raise AssertionError(f"{lanes} lanes: K2 decoded "
+                                 f"{int(dec[1].sum())} bytes, want {raw}")
+        small_io = lanes * (4 + 4 + 20 + 20 + 4)
+        bounds[lanes] = {"encoder": bound_ms(raw + packed + small_io),
+                         "decoder": bound_ms(packed + raw + small_io)}
+        timing[lanes] = row
         mb = len(data[lanes]) / 1e6
-        print(f"time {lanes} x 16 KiB: compress {timing[lanes][0]:.4f} s "
-              f"({mb / timing[lanes][0]:.3f} MB/s), kernel "
-              f"{timing[lanes][1]:.4f} s ({mb / timing[lanes][1]:.3f} MB/s), "
-              f"runs {[round(r, 4) for r in runs]} / "
-              f"{[round(r, 4) for r in kruns]}, peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB",
-              flush=True)
-    # the plain version once at the main path's shape, held against the
-    # kernel on the same inputs
-    blocks32 = blk.split_blocks(data[32], BLOCK)
-    _, kernel_s, plain_s = against_plain("main shape 32 x 16 KiB", blocks32,
-                                         params, caps)
+        print(f"time {lanes} x 16 KiB: compress {row['compress']:.4f} s "
+              f"({mb / row['compress']:.3f} MB/s), decompress "
+              f"{row['decompress']:.4f} s ({mb / row['decompress']:.3f} "
+              f"MB/s); K1 {row['K1']:.3f} ms, K2 {row['K2']:.3f} ms "
+              f"(bounds {bounds[lanes]['encoder']:.5f} / "
+              f"{bounds[lanes]['decoder']:.5f} ms); runs "
+              f"{[round(r, 4) for r in row['compress_runs']]} / "
+              f"{[round(r, 4) for r in row['decompress_runs']]} s, "
+              f"{[round(r, 3) for r in row['K1_runs']]} / "
+              f"{[round(r, 3) for r in row['K2_runs']]} ms; peak device "
+              f"memory {row['peak_mib']:.0f} MiB", flush=True)
+
+    # the plain versions at 32 lanes of 4 KiB (a slice of each main-path
+    # block, caps_for_block(16 KiB)), held against the kernels
+    plain_blocks = [p[:PLAIN_BLOCK] for p in blk.split_blocks(data[32], BLOCK)]
+    enc, k1_s, plain_enc_s = against_plain("plain shape 32 x 4 KiB",
+                                           plain_blocks, params, caps)
+    words, byte_lens = as_i32(enc[0]), enc[1].to(torch.int32)
+    dec, k2_s, plain_dec_s = against_plain_dec("plain shape 32 x 4 KiB",
+                                               words, byte_lens, caps)
+    for i, b in enumerate(plain_blocks):
+        if dec[0][i, : dec[1][i]].cpu().numpy().tobytes() != b:
+            raise AssertionError(f"plain shape: block {i} does not round trip")
     phase("times", t0)
 
-    print(json.dumps({"kernels": [{
-        "name": "encoder",
-        "route": "cuda",
-        "source": "x3tpu_torch/csrc/x3_encoder.cu",
-        "replaces": "x3tpu/vm/kernel.py:228",
-        "launches": launches,
-        "max_abs_err": max_err[0],
-        "ms": timing[32][1] * 1e3,
-        "plain_ms": plain_s * 1e3,
-        "ms_128_lanes": timing[128][1] * 1e3,
-        "compress_mb_s": {str(k): len(data[k]) / 1e6 / v[0]
-                          for k, v in timing.items()},
-    }]}), flush=True)
+    def kernel_entry(kernel, source, replaces, k_ms, plain_s, k_small_s):
+        return {
+            "name": kernel,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[kernel],
+            "max_abs_err": max_err[kernel],
+            "ms": timing[32][k_ms],
+            "plain_ms": plain_s * 1e3,
+            "bound_ms": bounds[32][kernel],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "shape": "32 x 16 KiB",
+            "plain_shape": "32 x 4 KiB",
+            "ms_at_plain_shape": k_small_s * 1e3,
+            "ms_128_lanes": timing[128][k_ms],
+            "bound_ms_128_lanes": bounds[128][kernel],
+        }
+
+    print(json.dumps({"kernels": [
+        kernel_entry("encoder", "x3tpu_torch/csrc/x3_encoder.cu",
+            "x3tpu/vm/kernel.py:228", "K1", plain_enc_s, k1_s),
+        kernel_entry("decoder", "x3tpu_torch/csrc/x3_decoder.cu",
+            "x3tpu/vm/kernel_dec.py:112", "K2", plain_dec_s, k2_s),
+    ], "compress_mb_s": {str(k): len(data[k]) / 1e6 / v["compress"]
+                         for k, v in timing.items()},
+       "decompress_mb_s": {str(k): len(data[k]) / 1e6 / v["decompress"]
+                           for k, v in timing.items()}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -5,6 +5,7 @@ codec's pair count.  Words, lengths, counts and overflow flags must be
 equal; the f32 size estimates agree within rtol 1e-5, atol 1e-3 (x3tpu's
 own tolerance between its engines, tests/test_vm.py)."""
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -14,9 +15,10 @@ import torch
 import jax.numpy as jnp
 
 from x3tpu import codec as jcodec
+from x3tpu import config as jconfig
 from x3tpu import host, spec
-from x3tpu.config import CodecCaps, X3Params
 from x3tpu_torch import codec
+from x3tpu_torch.config import CodecCaps, X3Params
 
 from conftest import GOLDEN, PARAMSETS, golden_cases
 
@@ -42,6 +44,14 @@ TINY_CHUNK = 120
 OVERFLOW_FLAGS = ("dict", "ctx0", "ctx1", "pairs", "out")
 
 GOLDEN_NAMES = sorted(p.stem for p in GOLDEN.glob("*.bin"))
+
+
+def jax_twin(obj):
+    """x3tpu's X3Params or CodecCaps built from the fields of the port's
+    (the two packages' frozen dataclasses never compare equal, so each
+    package gets its own)."""
+    cls = {X3Params: jconfig.X3Params, CodecCaps: jconfig.CodecCaps}[type(obj)]
+    return cls(**dataclasses.asdict(obj))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -102,6 +112,7 @@ def plain_tiny():
 
 
 def _xla(blocks, params, caps, chunk_steps=8192):
+    params, caps = jax_twin(params), jax_twin(caps)
     text, tlen = jcodec.pack_blocks(blocks, params, caps)
     return jcodec.encode_blocks_chunked(jnp.asarray(text), jnp.asarray(tlen),
                                         params, caps, chunk_steps=chunk_steps)
@@ -123,12 +134,13 @@ def _assert_same(ours, ref, lanes):
                                       err_msg=name)
 
 
-@pytest.fixture(scope="module")
-def t4_batch():
+@functools.lru_cache(maxsize=None)
+def plain_t4():
     """One plain batch under the t4_w1 paramset (== SMALL_PARAMS): the XLA
     batch in lanes 0-5, then the golden inputs it does not hold already
     (lanes are independent, so sharing the batch changes no lane's
-    result).  Returns (blocks, the lane of each golden input, result)."""
+    result).  Returns (blocks, the lane of each golden input, result);
+    made once per process, the callers only read it."""
     blocks = _xla_inputs()
     lane_of = {}
     for name in GOLDEN_NAMES:
@@ -139,13 +151,18 @@ def t4_batch():
     return blocks, lane_of, _plain(blocks, SMALL_PARAMS, SMALL_CAPS)
 
 
+@pytest.fixture(scope="module")
+def t4_batch():
+    return plain_t4()
+
+
 def test_plain_matches_xla(t4_batch):
     blocks, _, ours = t4_batch
     ref = _xla(_xla_inputs(), SMALL_PARAMS, SMALL_CAPS)
     _assert_same(ours, ref, slice(0, 6))
     streams = codec.streams_from_words(ours[0], ours[1], 6)
     for i, b in enumerate(_xla_inputs()):
-        assert streams[i] == spec.encode(b, SMALL_PARAMS), f"block {i}"
+        assert streams[i] == spec.encode(b, jax_twin(SMALL_PARAMS)), f"block {i}"
 
 
 def test_plain_matches_xla_tiny_caps():
@@ -196,7 +213,7 @@ def test_counts_match_spec(t4_batch):
     """Event counters equal the spec oracle's (x3.c:42 events[])."""
     blocks, lane_of, out = t4_batch
     for i in (2, 5, lane_of["lowent"]):
-        spec.encode(blocks[i], SMALL_PARAMS)
+        spec.encode(blocks[i], jax_twin(SMALL_PARAMS))
         np.testing.assert_array_equal(out[2].numpy()[i],
                                       spec.encode.last_stats.events,
                                       err_msg=f"block {i}")
@@ -207,12 +224,12 @@ def test_pair_overflow_exact_boundary():
     and not before: pair_cap == the host codec's pair count is the exact
     overflow-free minimum (tests/test_codec_jax.py, here with no JAX)."""
     data = (GOLDEN / "text_small.bin").read_bytes()[:300]
-    npairs = host.measure_state(data, SMALL_PARAMS)["pairs"]
+    npairs = host.measure_state(data, jax_twin(SMALL_PARAMS))["pairs"]
     assert npairs > 8
     base = dict(dict_cap=1 << 10, ctx_items_cap=64, block_bytes=1 << 13)
     ok = _plain([data], SMALL_PARAMS, CodecCaps(pair_cap=npairs, **base))
     assert not ok[4].any_flag().any()
     assert codec.streams_from_words(ok[0], ok[1], 1)[0] == host.encode(
-        data, SMALL_PARAMS)
+        data, jax_twin(SMALL_PARAMS))
     bad = _plain([data], SMALL_PARAMS, CodecCaps(pair_cap=npairs - 1, **base))
     assert bad[4].pairs.all()

@@ -9,12 +9,15 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from x3tpu.config import MAX_MATCH_LEN, X3Params
+from x3tpu.config import X3Params as JX3Params
+from x3tpu.models import adaptive as jam
 from x3tpu.models import context as jcm
 from x3tpu.models import dictionary as jdm
 from x3tpu.ops import ac as jac
 from x3tpu.ops import bitio as jbitio
 from x3tpu.ops import match as jmatch
+from x3tpu_torch.config import MAX_MATCH_LEN, X3Params
+from x3tpu_torch.models import adaptive as tam
 from x3tpu_torch.models import context as tcm
 from x3tpu_torch.models import dictionary as tdm
 from x3tpu_torch.ops import ac as tac
@@ -92,6 +95,82 @@ def test_ac_encode_and_flush():
     ja, ta = _both(np.array([True] * 7 + [False]), jnp.bool_)
     _same(jax.jit(jac.ac_flush)(j_enc, j_sink, ja),
           tac.ac_flush(t_enc, t_sink, ta), "flush")
+
+
+def test_ac_decode_and_source():
+    """The decoder's priming, (step, value) and interval update with its
+    multi-bit source reads, on seeded words: streams shorter than their
+    buffer (the sentinel past the end), byte counts that are not a
+    multiple of 4 or exceed the buffer (x3tpu's clamped read), random
+    activity and symbol intervals."""
+    rng = np.random.default_rng(12)
+    lanes, iw = 8, 6
+    words = rng.integers(0, 1 << 32, (lanes, iw), dtype=np.uint64)
+    byte_lens = np.array([0, 3, 4, 9, 17, 24, 30, 40])
+    jw, tw = _both(words.astype(np.int64), jnp.uint32)
+    jl, tl = _both(byte_lens, jnp.int32)
+    j_src, t_src = jbitio.source_init(jw, jl), tbitio.source_init(tw, tl)
+    _same(j_src, t_src, "source_init")
+    (j_dec, j_src), (t_dec, t_src) = (jac.dec_init(j_src, lanes),
+                                      tac.dec_init(t_src))
+    _same((j_dec, j_src), (t_dec, t_src), "dec_init")
+    j_value, j_update = jax.jit(jac.ac_decode_value), jax.jit(
+        jac.ac_decode_update)
+    for step in range(120):
+        low_f, high_f, total = _valid_intervals(rng, lanes)
+        jt, tt = _both(total, jnp.uint32)
+        jv, tv = j_value(j_dec, jt), tac.ac_decode_value(t_dec, tt)
+        _same(tuple(jv), tuple(tv), f"value@{step}")
+        jlo, tlo = _both(low_f, jnp.uint32)
+        jhi, thi = _both(high_f, jnp.uint32)
+        ja, ta = _both(rng.random(lanes) < 0.8, jnp.bool_)
+        j_dec, j_src = j_update(j_dec, j_src, jv[0], jlo, jhi, ja)
+        t_dec, t_src = tac.ac_decode_update(t_dec, t_src, tv[0], tlo, thi, ta)
+        _same((j_dec, j_src), (t_dec, t_src), f"update@{step}")
+    # lanes read the sentinel past their readable words, and the lane whose
+    # byte count exceeds the buffer read its clamped last word
+    widx, nwords = np.asarray(j_src.widx), np.asarray(j_src.nwords)
+    assert (widx > nwords)[:7].all() and nwords[7] > iw and widx[7] > iw
+
+
+def test_model_and_context_decode_search():
+    """model_decode_sym (a zero freq does not count) and ctx_decode_pos
+    over hub, small and promoted rows, at values inside and past the
+    totals."""
+    rng = np.random.default_rng(13)
+    lanes = 6
+    freqs = rng.integers(0, 4, (lanes, 40))
+    freqs[:, 30:] = 0
+    jf, tf = _both(freqs, jnp.int32)
+    for step in range(20):
+        value = rng.integers(0, 120, lanes)
+        jv, tv = _both(value, jnp.uint32)
+        _same(tuple(jax.jit(jam.model_decode_sym)(jf, jv)),
+              tuple(tam.model_decode_sym(tf, tv)), f"model@{step}")
+    jfam = jcm.ctx_init(lanes, 10, 8, 7, with_pair=True, small_cap=3,
+                        promo_rows=3)
+    tfam = tcm.ctx_init(lanes, 10, 8, 7, with_pair=True, small_cap=3,
+                        promo_rows=3)
+    j_upd, j_find = jax.jit(jcm.ctx_update), jax.jit(jcm.ctx_find)
+    j_dec = jax.jit(jcm.ctx_decode_pos)
+    pair_id = np.zeros(lanes, np.int64)
+    for step in range(60):
+        cid = rng.integers(0, 6, lanes)
+        cid[rng.random(lanes) < 0.3] = 0
+        jcid, tcid = _both(cid, jnp.int32)
+        jv, tv = jax.jit(jcm.ctx_view)(jfam, jcid), tcm.ctx_view(tfam, tcid)
+        value = rng.integers(0, 12, lanes)
+        jval, tval = _both(value, jnp.uint32)
+        _same(tuple(j_dec(jfam, jv, jval)),
+              tuple(tcm.ctx_decode_pos(tfam, tv, tval)), f"decode@{step}")
+        jtag, ttag = _both(rng.integers(0, 9, lanes), jnp.int32)
+        jr, tr = j_find(jfam, jv, jtag), tcm.ctx_find(tfam, tv, ttag)
+        jp, tp = _both(pair_id, jnp.int32)
+        ja, ta = _both(np.ones(lanes, bool), jnp.bool_)
+        jfam = j_upd(jfam, jv, jtag, jr[0], jr[1], ja, jp)
+        tfam = tcm.ctx_update(tfam, tv, ttag, tr[0], tr[1], ta, tp)
+        pair_id += ~np.asarray(jr[0])
+    assert np.asarray(jfam.promo_n).any()
 
 
 def test_sink_put_bits():
@@ -191,8 +270,8 @@ def test_best_match_sweep(f1, f2):
     so the vetoes fire."""
     rng = np.random.default_rng(5 + f1 + 7 * f2)
     lanes, window, width = 8, 256, 384
-    params = X3Params(max_match_count=6, window=window, magic_factor1=f1,
-                      magic_factor2=f2)
+    fields = dict(max_match_count=6, window=window, magic_factor1=f1,
+                  magic_factor2=f2)
     text = _text(rng, 300)
     jd, td = _dicts(rng, text, lanes, 64, 40)
     p = rng.integers(0, len(text) - width, lanes)
@@ -201,9 +280,9 @@ def test_best_match_sweep(f1, f2):
     jcounts = jmatch.window_counts(jw, window)
     ja, ta = _both(np.arange(lanes) != 2, jnp.bool_)
     jbest = jax.jit(jmatch.best_match_sweep, static_argnames="params")(
-        jcounts, jw, jd, ja, params=params)
+        jcounts, jw, jd, ja, params=JX3Params(**fields))
     tbest = tmatch.best_match_sweep(
-        tmatch.window_counts(tw, window), tw, td, ta, params)
+        tmatch.window_counts(tw, window), tw, td, ta, X3Params(**fields))
     _same(jbest, tbest, "best")
     assert (np.asarray(jbest) > 1).any()
 

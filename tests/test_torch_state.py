@@ -1,7 +1,7 @@
-"""The encoder carry crosses between the packages: x3tpu's carry after k
-events, loaded into the port with ``carry_from_numpy``, runs m more events
-in both, and every field of the two carries agrees (the start of a
-lockstep diff between the engines)."""
+"""The encoder and decoder carries cross between the packages: x3tpu's
+carry after k events, loaded into the port with ``carry_from_numpy``, runs
+k more events in both, and every field of the two carries agrees (the
+start of a lockstep diff between the engines)."""
 
 import numpy as np
 
@@ -10,12 +10,13 @@ import jax.numpy as jnp
 from x3tpu import codec as jcodec
 from x3tpu_torch import codec
 
-from test_torch_codec import TINY_CAPS, TINY_CHUNK, TINY_PARAMS, _tiny_blocks
+from test_torch_codec import (TINY_CAPS, TINY_CHUNK, TINY_PARAMS, _tiny_blocks,
+                              jax_twin, plain_tiny)
 from test_torch_codec import one_thread  # noqa: F401  (autouse)
 
 # x3tpu's tiny-caps program (test_torch_codec runs the same one), so that
 # one process compiles it once
-CAPS, PARAMS, STEPS = TINY_CAPS, TINY_PARAMS, TINY_CHUNK
+CAPS, PARAMS, STEPS = jax_twin(TINY_CAPS), jax_twin(TINY_PARAMS), TINY_CHUNK
 
 
 def _assert_same(a, b, when):
@@ -41,9 +42,34 @@ def test_carry_round_trip_and_lockstep():
     carry = codec.carry_from_numpy(fields)
     _assert_same(codec.carry_to_numpy(carry), fields, "after loading")
 
-    carry = codec.enc_chunk(carry, PARAMS, STEPS)
+    carry = codec.enc_chunk(carry, TINY_PARAMS, STEPS)
     jcarry = jcodec._enc_chunk_jit(jcarry, PARAMS, STEPS)
     ours, ref = codec.carry_to_numpy(carry), codec.carry_to_numpy(jcarry)
     _assert_same(ours, ref, f"after {2 * STEPS} events")
     # the run got past the point where every context tier is in use
     assert ref["ctx1.promo_n"].any() and ref["d.n"].max() > 50
+
+
+def test_dec_carry_round_trip_and_lockstep():
+    """The decoder's carry on plain_tiny()'s streams: x3tpu's tiny-caps
+    decode program (test_torch_decode runs the same one) for STEPS events,
+    then both decoders for STEPS more."""
+    words, byte_lens = plain_tiny()[:2]
+    jcarry = jcodec._dec_init_jit(
+        jnp.asarray(words.numpy().astype(np.uint32)),
+        jnp.asarray(byte_lens.numpy().astype(np.int32)), PARAMS, CAPS)
+    jcarry = jcodec._dec_chunk_jit(jcarry, PARAMS, STEPS)
+    fields = codec.carry_to_numpy(jcarry)
+    assert fields["src.words"].dtype == np.uint32
+    assert fields["out"].dtype == np.uint8
+
+    carry = codec.carry_from_numpy(fields)
+    assert isinstance(carry, codec.DecCarry)
+    _assert_same(codec.carry_to_numpy(carry), fields, "after loading")
+
+    carry = codec.dec_chunk(carry, STEPS)
+    jcarry = jcodec._dec_chunk_jit(jcarry, PARAMS, STEPS)
+    ours, ref = codec.carry_to_numpy(carry), codec.carry_to_numpy(jcarry)
+    _assert_same(ours, ref, f"after {2 * STEPS} events")
+    # the run got past the first context promotions and some lanes' EOF
+    assert ref["ctx1.promo_n"].any() and ref["done"].any()

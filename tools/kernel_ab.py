@@ -1,0 +1,93 @@
+#!/usr/bin/env python3
+"""Time the CUDA kernels of several checkouts of the port on one GPU, in
+turns, on the same input: the A/B of a kernel change.
+
+    python3 tools/kernel_ab.py OLD_TREE NEW_TREE [...]
+
+Each tree is the root of a checkout (unpack the parent with ``git archive
+<commit> | tar -x -C <dir>`` into a directory ``.gitignore`` lists).  The
+trees run in the order old, new, new, old (for two trees), each in a
+process of its own that imports that tree's ``x3tpu_torch``: K1 (and K2
+where the tree has it) at 32 lanes of 16 KiB of ``chip_smoke.corpus``,
+median of 5 wrapper calls timed with CUDA events.  One JSON line per run.
+"""
+
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+
+LANES, BLOCK = 32, 16 * 1024
+
+
+def time_tree(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
+    sys.path.insert(0, str(tree))
+    import torch
+    from x3tpu_torch import X3Params, codec
+    from x3tpu_torch.parallel import runtime
+    from x3tpu_torch.vm import driver
+
+    data = data_path.read_bytes()
+    params, caps = X3Params(), runtime.caps_for_block(BLOCK)
+    blocks = [data[i : i + BLOCK] for i in range(0, len(data), BLOCK)]
+    text, tlen = codec.pack_blocks(blocks, params, caps)
+    text, tlen = torch.from_numpy(text).cuda(), torch.from_numpy(tlen).cuda()
+    driver.build()
+
+    def median_ms(fn):
+        fn()
+        runs = []
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            runs.append(a.elapsed_time(b))
+        return statistics.median(runs), runs
+
+    enc = driver.encode_blocks_cuda(text, tlen, params, caps)
+    out = {"tree": str(tree)}
+    out["K1_ms"], out["K1_runs"] = median_ms(
+        lambda: driver.encode_blocks_cuda(text, tlen, params, caps))
+    if hasattr(driver, "decode_blocks_cuda"):
+        w = enc[0]
+        words = torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+        lens = enc[1].to(torch.int32)
+        dec = driver.decode_blocks_cuda(words, lens, caps)
+        if int(dec[1].sum()) != int(tlen.sum()):
+            raise AssertionError(f"{tree}: K2 did not decode the wave")
+        out["K2_ms"], out["K2_runs"] = median_ms(
+            lambda: driver.decode_blocks_cuda(words, lens, caps))
+    return out
+
+
+def main() -> int:
+    if sys.argv[1] == "--one":
+        print(json.dumps(time_tree(pathlib.Path(sys.argv[2]).resolve(),
+                                   pathlib.Path(sys.argv[3]))), flush=True)
+        return 0
+    root = pathlib.Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root))
+    import chip_smoke
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    print(smi.stdout.strip(), flush=True)
+    data_path = root / "build" / "kernel_ab_data.bin"
+    data_path.parent.mkdir(parents=True, exist_ok=True)
+    data_path.write_bytes(chip_smoke.corpus(LANES * BLOCK))
+    trees = sys.argv[1:]
+    order = trees + trees[::-1] if len(trees) == 2 else trees
+    for tree in order:
+        subprocess.run([sys.executable, __file__, "--one", tree,
+                        str(data_path)], check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,26 +1,29 @@
 """x3tpu_torch — the PyTorch and CUDA port of x3tpu.
 
-The framework-free parts of x3tpu (``x3tpu.config``, the container format
-``x3tpu.parallel.blocks``, ``x3tpu.utils.stats``) are imported as they are;
-everything that ran on JAX is ported:
+The port imports nothing of the JAX package; it keeps its own copies of
+x3tpu's framework-free modules (:mod:`x3tpu_torch.config`, the container
+format :mod:`x3tpu_torch.parallel.blocks`, :mod:`x3tpu_torch.utils.stats`).
+Everything that ran on JAX is ported:
 
 * :mod:`x3tpu_torch.ops`, :mod:`x3tpu_torch.models`,
-  :mod:`x3tpu_torch.codec` — the lane-batched encoder in plain PyTorch (the
-  port of x3tpu's XLA engine, and the plain version of the CUDA kernel);
-* :mod:`x3tpu_torch.vm.driver` — the CUDA encoder kernel (``csrc/``);
-* :mod:`x3tpu_torch.parallel.runtime` — ``compress``.
+  :mod:`x3tpu_torch.codec` — the lane-batched encoder and decoder in plain
+  PyTorch (the port of x3tpu's XLA engine, and the plain versions of the
+  CUDA kernels);
+* :mod:`x3tpu_torch.vm.driver` — the CUDA encoder and decoder kernels
+  (``csrc/``);
+* :mod:`x3tpu_torch.parallel.runtime` — ``compress`` and ``decompress``.
 
 Importing the package pulls in neither jax nor the kernel build.
 """
 
-from x3tpu.config import CodecCaps, X3Params
+from x3tpu_torch.config import CodecCaps, X3Params
 
-__all__ = ["X3Params", "CodecCaps", "compress"]
+__all__ = ["X3Params", "CodecCaps", "compress", "decompress"]
 
 
 def __getattr__(name):
-    if name == "compress":
+    if name in ("compress", "decompress"):
         from x3tpu_torch.parallel import runtime
 
-        return runtime.compress
+        return getattr(runtime, name)
     raise AttributeError(f"module 'x3tpu_torch' has no attribute {name!r}")

@@ -1,15 +1,21 @@
-"""The lane-batched x3 encoder in plain PyTorch: the port of x3tpu's XLA
-engine (``x3tpu.codec``, encoder half) and the plain version of the CUDA
-encoder kernel (``x3tpu_torch.vm.driver``).
+"""The lane-batched x3 encoder and decoder in plain PyTorch: the port of
+x3tpu's XLA engine (``x3tpu.codec``) and the plain versions of the CUDA
+kernels K1 and K2 (``x3tpu_torch.vm.driver``).
 
 One event per iteration across all L lanes (independent blocks) in
 lockstep, with masked sub-loops for literal bytes and arithmetic-coder
-renormalization (compress loop, x3.c:372-434):
+renormalization.  Encoder (compress loop, x3.c:372-434):
 
   probe -> window scan -> threshold sweep -> hit/miss decision ->
   mode selection by f32 product probabilities (x3.c:150-172) ->
   AC-code event + payload (+ literal bytes) -> dictionary MTF/insert ->
   context updates -> advance.
+
+Decoder (decompress loop, x3.c:285-353):
+
+  event symbol -> literal length and bytes | hit payload by mode (ctx0
+  item, ctx1 item, recency rank) -> context updates -> dictionary
+  MTF/insert (duplicate check) -> output bytes.
 
 State is fixed-shape (capacities from ``CodecCaps``) with the XLA engine's
 capacity semantics: writes that would exceed a capacity are dropped and
@@ -24,7 +30,7 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from x3tpu.config import (
+from x3tpu_torch.config import (
     CodecCaps,
     E_CTX0,
     E_CTX1,
@@ -375,11 +381,277 @@ def encode_blocks_chunked(text, tlen, params: X3Params, caps: CodecCaps):
 
 
 # ---------------------------------------------------------------------------
-# Carry <-> NumPy (field for field with x3tpu.codec.EncCarry)
+# Decoder
+# ---------------------------------------------------------------------------
+
+class DecCarry(NamedTuple):
+    out: torch.Tensor      # u8 [L, OB]
+    opos: torch.Tensor     # [L]
+    done: torch.Tensor     # bool [L]
+    prev_c1: torch.Tensor  # [L]
+    c1: torch.Tensor       # [L]
+    d: dm.DictState
+    ctx0: cm.CtxFamily
+    ctx1: cm.CtxFamily
+    pair_n: torch.Tensor   # [L]
+    ev: torch.Tensor       # [L, 5]
+    ms: torch.Tensor       # [L, 32]
+    ch: torch.Tensor       # [L, 256]
+    ix: torch.Tensor       # [L, D]
+    dec: acm.AcDec
+    src: bitio.BitSource
+    counts: torch.Tensor   # [L, 5]
+    sizes: torch.Tensor    # f32 [L, 5]
+    pair_of: torch.Tensor  # bool [L]
+    out_of: torch.Tensor   # bool [L]
+
+
+def _scatter_bytes(out: torch.Tensor, opos: torch.Tensor, data: torch.Tensor,
+                   length: torch.Tensor, active: torch.Tensor) -> None:
+    """out[l, opos[l]+j] = data[l, j] for j < length[l] on active lanes, in
+    place.  The caller has checked that every write fits."""
+    lanes, width = data.shape
+    j = iota(width, data.device)[None, :]
+    mask = active[:, None] & (j < length[:, None])
+    flat = iota(lanes, data.device)[:, None] * out.shape[1] + opos[:, None] + j
+    out.view(-1)[flat[mask]] = data[mask]
+
+
+def _literal_decode_loop(carry: DecCarry, is_new: torch.Tensor,
+                         length: torch.Tensor):
+    """Decode fragment bytes through the 256-symbol char model (x3.c:300);
+    returns (frag u8 [L, 32], ch, dec, src, nbits)."""
+    lanes = is_new.shape[0]
+    dev = is_new.device
+    frag = torch.zeros((lanes, MAX_MATCH_LEN), dtype=torch.uint8, device=dev)
+    nbits = torch.zeros((lanes,), dtype=F32, device=dev)
+    ch, dec, src = carry.ch, carry.dec, carry.src
+    # byte k of a fragment follows k bytes of the same fragment, each of
+    # which added one to the char model's total
+    tot0 = ch.sum(1)
+    syms = []
+    for k in range(int(torch.where(is_new, length, 0).max())):
+        act = is_new & (k < length)
+        step, value = acm.ac_decode_value(dec, tot0 + k)
+        sym, low, span = am.model_decode_sym(ch, value)
+        dec, src = acm.ac_decode_update(dec, src, step, low, low + span, act)
+        ch = am.model_inc(ch, sym, act)
+        nbits = nbits + torch.where(act, _bits(am.f32_prob(span, tot0 + k)),
+                                    0.0)
+        syms.append(sym)
+    if syms:
+        k = len(syms)
+        mask = is_new[:, None] & (iota(k, dev)[None, :] < length[:, None])
+        frag[:, :k] = torch.stack(syms, 1) * mask
+    return frag, ch, dec, src, nbits
+
+
+def _dec_body(carry: DecCarry) -> DecCarry:
+    """One event on every lane (x3tpu.codec._dec_body).  The E_NEW-only and
+    hit-only parts are skipped when no lane takes them: their results are
+    masked out on every lane then, so skipping changes nothing."""
+    lanes = carry.opos.shape[0]
+    dev = carry.opos.device
+    lane = iota(lanes, dev)
+    active = ~carry.done
+
+    # (1) event symbol (x3.c:293); E_EOF is never counted (x3.c bumps
+    # events[] only in the hit and E_NEW branches)
+    etot = carry.ev.sum(1)
+    step, value = acm.ac_decode_value(carry.dec, etot)
+    esym, elow, espan = am.model_decode_sym(carry.ev, value)
+    esym = torch.where(active, esym, E_EOF)
+    dec, src = acm.ac_decode_update(carry.dec, carry.src, step, elow,
+                                    elow + espan, active)
+    ev = am.model_inc(carry.ev, esym, active)
+    counts = am.model_inc(carry.counts, esym, active & (esym != E_EOF))
+    eof = active & (esym == E_EOF)
+    is_new = active & (esym == E_NEW)
+    hit = active & ~eof & ~is_new
+    any_new, any_hit = bool(is_new.any()), bool(hit.any())
+    ev_bits = _bits(am.f32_prob(espan, etot))
+    add = torch.where(eof, ev_bits, 0.0)
+
+    # (2) E_NEW: length (x3.c:274) and fragment bytes
+    ms, ch = carry.ms, carry.ch
+    frag = torch.zeros((lanes, MAX_MATCH_LEN), dtype=torch.uint8, device=dev)
+    length_new = torch.ones_like(carry.opos)
+    if any_new:
+        mstot = carry.ms.sum(1)
+        step, value = acm.ac_decode_value(dec, mstot)
+        lsym, lslow, lsspan = am.model_decode_sym(carry.ms, value)
+        dec, src = acm.ac_decode_update(dec, src, step, lslow,
+                                        lslow + lsspan, is_new)
+        ms_bits = _bits(am.f32_prob(lsspan, mstot))
+        ms = am.model_inc(carry.ms, lsym, is_new)
+        length_new = lsym + 1
+        frag, ch, dec, src, lit_bits = _literal_decode_loop(
+            carry._replace(dec=dec, src=src), is_new, length_new)
+        add = torch.where(is_new, ev_bits + ms_bits + lit_bits, add)
+
+    # (3) hit: resolve contexts, decode the payload by mode (x3.c:57-129)
+    d, ix = carry.d, carry.ix
+    ctx0, ctx1 = carry.ctx0, carry.ctx1
+    pair_of, pair_n = carry.pair_of, carry.pair_n
+    tag = torch.zeros_like(carry.opos)
+    hlen = torch.zeros_like(carry.opos)
+    hstr = frag
+    if any_hit:
+        v_pair = cm.ctx_view(ctx1, carry.prev_c1)
+        pair_found, _, pair_id = cm.ctx_find(ctx1, v_pair, carry.c1)
+        v0 = cm.ctx_view(ctx0, torch.where(pair_found, pair_id, 0))
+        v1 = cm.ctx_view(ctx1, carry.c1)
+        is0 = hit & (esym == E_CTX0)
+        is1 = hit & (esym == E_CTX1)
+        isx = hit & (esym == E_IDX1)
+        # totals differ per mode; one shared AC step.  Index-model entries
+        # past every lane's dictionary count are zero.
+        kx = max(1, int(d.n.max()))
+        modes = ((is0, ctx0, v0), (is1, ctx1, v1))
+        zero = torch.zeros_like(tag)
+        ptot = ix[:, :kx].sum(1)
+        for sel, fam, v in modes:
+            if bool(sel.any()):
+                ptot = torch.where(sel, cm.ctx_encode_stats(fam, v, zero)[2],
+                                   ptot)
+        ptot = ptot.clamp(min=1)
+        step, value = acm.ac_decode_value(dec, ptot)
+        rank, plow, pspan = am.model_decode_sym(ix[:, :kx], value)
+        tag = d.tag_of[lane, rank]
+        for sel, fam, v in modes:
+            if bool(sel.any()):
+                _, ctag, clow, cspan = cm.ctx_decode_pos(fam, v, value)
+                tag = torch.where(sel, ctag, tag)
+                plow = torch.where(sel, clow, plow)
+                pspan = torch.where(sel, cspan, pspan)
+        dec, src = acm.ac_decode_update(dec, src, step, plow, plow + pspan,
+                                        hit)
+        ix = am.model_inc(ix, rank, isx)
+        add = torch.where(hit, ev_bits + _bits(am.f32_prob(pspan, ptot)), add)
+
+        # context updates (decode mirror, x3.c:99-127)
+        f0, pos0, _ = cm.ctx_find(ctx0, v0, tag)
+        f1, pos1, _ = cm.ctx_find(ctx1, v1, tag)
+        ctx0 = cm.ctx_update(ctx0, v0, tag, f0, pos0, hit)
+        ctx1 = cm.ctx_update(ctx1, v1, tag, f1, pos1, hit, new_pair_id=pair_n)
+        new_pair = hit & ~f1
+        # the same one-early boundary as the encoder (_enc_body step 8)
+        pair_of = pair_of | (new_pair & (pair_n >= ctx0.tags.shape[1]))
+        pair_n = pair_n + new_pair
+
+        # the entry's bytes, read before this event's dictionary update
+        at = tag.clamp(max=d.lens.shape[1] - 1)
+        hlen, hstr = d.lens[lane, at], d.strs[lane, at]
+        d = dm.dict_mtf(d, tag, hit)
+    sizes = carry.sizes.index_put_((lane, esym), add, accumulate=True)
+
+    # (4) E_NEW: insert unless an exact duplicate (x3.c:309-317)
+    if any_new:
+        ins = is_new & ~dm.dict_has_exact_ok(d, dm.dict_probe_ok(d, frag)[3],
+                                             length_new)
+        if bool(ins.any()):
+            nidx = d.n.clamp(max=ix.shape[1] - 1)
+            ix[lane, nidx] = torch.where(ins & (d.n < ix.shape[1]), 1,
+                                         ix[lane, nidx])
+            d, _ = dm.dict_insert(d, frag, length_new, ins)
+
+    # (5) output bytes; an event that does not fit ends the lane with the
+    # out flag and writes nothing
+    length = torch.where(is_new, length_new, hlen)
+    data = torch.where(is_new[:, None], frag, hstr)
+    emit = is_new | hit
+    out_of = carry.out_of | (emit & (carry.opos + length > carry.out.shape[1]))
+    ok_emit = emit & ~out_of
+    _scatter_bytes(carry.out, carry.opos, data, length, ok_emit)
+    opos = carry.opos + length * ok_emit
+
+    prev_c1 = torch.where(hit, carry.c1, carry.prev_c1 * ~is_new)
+    c1 = torch.where(hit, tag, carry.c1 * ~is_new)
+    return DecCarry(
+        carry.out, opos, carry.done | eof | out_of, prev_c1, c1, d, ctx0,
+        ctx1, pair_n, ev, ms, ch, ix, dec, src, counts, sizes, pair_of,
+        out_of,
+    )
+
+
+def dec_init_carry(words: torch.Tensor, byte_lens: torch.Tensor,
+                   caps: CodecCaps) -> DecCarry:
+    """Initial decoder carry for L streams: ``words`` [L, IW] (u32 values)
+    and ``byte_lens`` [L].  A lane whose ``byte_lens`` is <= 0 starts done
+    (x3tpu/vm/driver.py _init_state_dec)."""
+    lanes = words.shape[0]
+    dev = words.device
+    d, ctx0, ctx1, ev, ms, ch, ix = _init_shared(lanes, caps, dev)
+    byte_lens = byte_lens.to(I64)
+    dec, src = acm.dec_init(bitio.source_init(words.to(I64), byte_lens))
+    z = lambda: torch.zeros((lanes,), dtype=I64, device=dev)
+    f = lambda: torch.zeros((lanes,), dtype=torch.bool, device=dev)
+    return DecCarry(
+        out=torch.zeros((lanes, caps.block_bytes), dtype=torch.uint8,
+                        device=dev),
+        opos=z(), done=byte_lens <= 0, prev_c1=z(), c1=z(),
+        d=d, ctx0=ctx0, ctx1=ctx1, pair_n=z(),
+        ev=ev, ms=ms, ch=ch, ix=ix, dec=dec, src=src,
+        counts=torch.zeros((lanes, E_LAST), dtype=I64, device=dev),
+        sizes=torch.zeros((lanes, E_LAST), dtype=F32, device=dev),
+        pair_of=f(), out_of=f(),
+    )
+
+
+def dec_active(carry: DecCarry) -> bool:
+    """Any lane still decoding."""
+    return bool((~carry.done).any())
+
+
+def dec_chunk(carry: DecCarry, nsteps: int) -> DecCarry:
+    """Run up to ``nsteps`` events."""
+    for _ in range(nsteps):
+        if not dec_active(carry):
+            break
+        carry = _dec_body(carry)
+    return carry
+
+
+def dec_finalize(carry: DecCarry):
+    """(out u8 [L, block_bytes], out_lens, counts, sizes, Overflow)."""
+    overflow = Overflow(
+        dict=carry.d.overflow, ctx0=carry.ctx0.overflow,
+        ctx1=carry.ctx1.overflow, pairs=carry.pair_of, out=carry.out_of,
+    )
+    return carry.out, carry.opos, carry.counts, carry.sizes, overflow
+
+
+def malformed(events: int) -> ValueError:
+    """The error of a lane still decoding after ``events`` events: every
+    event of a valid stream but the final EOF emits at least one byte, so
+    a valid stream ends within block_bytes + 1 events."""
+    return ValueError(f"malformed stream: a lane did not end within "
+                      f"{events} events")
+
+
+@torch.inference_mode()
+def decode_blocks_chunked(words, byte_lens, caps: CodecCaps):
+    """Decode L streams: ``words`` [L, IW] (u32 values; tensors or arrays,
+    the work runs on ``words``' device) and ``byte_lens`` [L].  The stream
+    is self-describing: no parameter shapes decoding.  Returns (out u8
+    [L, block_bytes], out_lens, counts, sizes, Overflow); raises
+    ValueError when a lane runs past the event bound."""
+    words = torch.as_tensor(words)
+    byte_lens = torch.as_tensor(byte_lens, device=words.device)
+    carry = dec_init_carry(words, byte_lens, caps)
+    carry = dec_chunk(carry, caps.block_bytes + 1)
+    if dec_active(carry):
+        raise malformed(caps.block_bytes + 1)
+    return dec_finalize(carry)
+
+
+# ---------------------------------------------------------------------------
+# Carry <-> NumPy (field for field with x3tpu.codec.EncCarry / DecCarry)
 # ---------------------------------------------------------------------------
 
 # fields holding u32 values; every other integer field is i32 in x3tpu
-_U32_FIELDS = {"enc.low", "enc.high", "sink.words"}
+_U32_FIELDS = {"enc.low", "enc.high", "sink.words", "dec.low", "dec.high",
+               "dec.buf", "src.words", "src.acc"}
 
 
 def _flatten(tree, prefix="") -> Dict[str, object]:
@@ -397,8 +669,8 @@ def _flatten(tree, prefix="") -> Dict[str, object]:
 
 def carry_to_numpy(carry) -> Dict[str, np.ndarray]:
     """``{"field.sub": array}`` with x3tpu's names, layouts and dtypes.
-    Also accepts an ``x3tpu.codec.EncCarry``, so the two carries flatten
-    alike."""
+    Also accepts an x3tpu ``EncCarry`` or ``DecCarry``, so the carries of
+    both packages flatten alike."""
     out = {}
     for key, val in _flatten(carry).items():
         arr = val
@@ -410,9 +682,10 @@ def carry_to_numpy(carry) -> Dict[str, np.ndarray]:
     return out
 
 
-def carry_from_numpy(fields: Dict[str, np.ndarray], device="cpu") -> EncCarry:
-    """Build a carry from :func:`carry_to_numpy`'s dict (e.g. one taken
-    from a running x3tpu encoder)."""
+def carry_from_numpy(fields: Dict[str, np.ndarray], device="cpu"):
+    """Build an :class:`EncCarry` or, from a decoder's fields, a
+    :class:`DecCarry` out of :func:`carry_to_numpy`'s dict (e.g. one taken
+    from a running x3tpu encoder or decoder)."""
 
     def leaf(key):
         if key not in fields:
@@ -429,12 +702,13 @@ def carry_from_numpy(fields: Dict[str, np.ndarray], device="cpu") -> EncCarry:
             for name in cls._fields
         ))
 
-    return build(EncCarry, "")
+    return build(DecCarry if "opos" in fields else EncCarry, "")
 
 
 _SUBTREES = {
     "d": dm.DictState, "ctx0": cm.CtxFamily, "ctx1": cm.CtxFamily,
     "enc": acm.AcEnc, "sink": bitio.BitSink,
+    "dec": acm.AcDec, "src": bitio.BitSource,
 }
 
 

@@ -1,6 +1,7 @@
-// The x3 encoder event loop for one lane (one independent block), written
-// once for the CUDA kernel (x3_encoder.cu, one CTA per lane) and for a
-// host build of the same source (x3_core_host.cpp, tests only).
+// The x3 encoder event loop for one lane (one independent block), and the
+// pieces the decoder (x3_dec_core.cuh) shares with it, written once for
+// the CUDA kernels (x3_encoder.cu, x3_decoder.cu: one CTA per lane) and for
+// a host build of the same source (x3_core_host.cpp, tests only).
 //
 // Semantics are those of x3tpu's XLA engine (x3tpu/codec.py _enc_body and
 // the ops/ and models/ modules it calls), including its capacity model:
@@ -15,8 +16,8 @@
 // advance, EOF and flush) runs on the leader thread alone.  Values every
 // thread needs are either reduction results (identical in all threads) or
 // live in the Lane/Shared structs, written by the leader before a sync.
-// On the host, Par is one thread: loops run serially, reductions are the
-// identity and syncs are no-ops.
+// On the host, Par is one thread: loops run serially, reductions and scans
+// are the identity and syncs are no-ops.
 #pragma once
 
 #include <math.h>
@@ -57,11 +58,11 @@ struct Fam {
 };
 
 // Scratch layout of one lane.  The dictionary keeps strs (D x 32 bytes),
-// lens, rank_of and the index model ix; the encoder never reads tag_of,
-// so the kernel does not keep it.
+// lens, rank_of, tag_of (recency rank -> tag) and the index model ix; only
+// the decoder keeps tag_of, and the encoder leaves it zero.
 struct Layout {
   int D;
-  int64_t strs, lens, rank_of, ix;
+  int64_t strs, lens, rank_of, tag_of, ix;
   Fam f0, f1;
   int64_t words;  // int32 words per lane
 };
@@ -104,6 +105,7 @@ X3_HD Layout make_layout(const Caps& c) {
   L.strs = at; at += (int64_t)c.D * (MML / 4);
   L.lens = at; at += c.D;
   L.rank_of = at; at += c.D;
+  L.tag_of = at; at += c.D;
   L.ix = at; at += c.D;
   L.f0 = make_fam(c.D, c.pair_cap, c.items0, c.small_cap, c.promo_rows, 0, at);
   L.f1 = make_fam(c.D, c.D, c.items1, c.small_cap, c.promo_rows, 1, at);
@@ -114,8 +116,12 @@ X3_HD Layout make_layout(const Caps& c) {
 // Scalar state of one lane.  Shared memory on the device.
 struct Lane {
   uint32_t low, high;  // AC interval
-  int scale;           // pending underflow bits
-  int nbits;           // bits written to the sink
+  int scale;           // pending underflow bits (encoder)
+  int nbits;           // bits written to the sink (encoder)
+  uint32_t buf;        // AC decode buffer (decoder)
+  uint32_t acc;        // bit source: current word (decoder)
+  int used, widx, nwords;  // bit source: bits used of acc, next word, words
+  int opos, done;      // output bytes written, lane finished (decoder)
   int flags;           // OF_* bits
   int p, tlen, prev_c1, c1, pair_n, dn;
   int hub_n[2], promo_n[2];
@@ -127,12 +133,14 @@ struct Lane {
 
 // Per-event values handed from the leader or the whole CTA to all threads.
 struct Shared {
-  uint8_t t32[MML];    // text[p, p+32): probe target and literal bytes
+  uint8_t t32[MML];    // text[p, p+32) or the decoded fragment, zero-padded
   int hist[MML + 1];   // window scan: positions by run length
   int counts[MML];     // count[i] = positions repeating the first i+1 bytes
   int cumch[256];      // exclusive prefix of the char model
   int op, op_n, op_r, op_tag;  // dictionary rank update for this event
-  unsigned long long red[32];  // block-reduction scratch
+  int esym, flen;      // decoder: the event and an E_NEW fragment's length
+  float evbits;        // decoder: the event symbol's size estimate
+  unsigned long long red[32];  // block-reduction and scan scratch
 };
 
 enum { OP_NONE = 0, OP_MTF = 1, OP_INSERT = 2 };
@@ -149,8 +157,58 @@ struct ParHost {
   X3_HD bool leader() const { return true; }
   X3_HD void sync() const {}
   template <class Op> X3_HD uint64_t reduce(uint64_t v, Op) const { return v; }
+  X3_HD uint64_t scan_excl(uint64_t) const { return 0; }  // exclusive prefix
   X3_HD void hist_add(int* h, int bin) const { h[bin] += 1; }
 };
+
+#ifdef __CUDACC__
+// The device policy: the CTA's threads, block reductions and scans through
+// shared memory, shared-memory atomics for the scan histogram.  nvcc's host
+// pass compiles the kernels' bodies too; there the policy is the one-thread
+// ParHost, which is never run.
+struct ParDev
+#ifndef __CUDA_ARCH__
+    : ParHost
+#endif
+{
+  unsigned long long* scratch;  // >= blockDim.x / 32 entries, shared
+#ifdef __CUDA_ARCH__
+  __device__ int tid() const { return threadIdx.x; }
+  __device__ int nthr() const { return blockDim.x; }
+  __device__ bool leader() const { return threadIdx.x == 0; }
+  __device__ void sync() const { __syncthreads(); }
+  __device__ void hist_add(int* h, int bin) const { atomicAdd(h + bin, 1); }
+  template <class Op>
+  __device__ uint64_t reduce(uint64_t v, Op op) const {
+    for (int o = 16; o > 0; o >>= 1)
+      v = op(v, (uint64_t)__shfl_down_sync(0xffffffffu, (unsigned long long)v, o));
+    const int w = threadIdx.x >> 5, nw = blockDim.x >> 5;
+    __syncthreads();  // the previous reduction's readers are done
+    if ((threadIdx.x & 31) == 0) scratch[w] = v;
+    __syncthreads();
+    uint64_t r = scratch[0];
+    for (int i = 1; i < nw; ++i) r = op(r, (uint64_t)scratch[i]);
+    return r;
+  }
+  // Sum of v over the threads before this one.
+  __device__ uint64_t scan_excl(uint64_t v) const {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    uint64_t x = v;  // inclusive prefix within the warp
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint64_t y =
+          (uint64_t)__shfl_up_sync(0xffffffffu, (unsigned long long)x, o);
+      if (lane >= o) x += y;
+    }
+    __syncthreads();  // the previous reduction's readers are done
+    if (lane == 31) scratch[w] = x;
+    __syncthreads();
+    uint64_t base = 0;
+    for (int i = 0; i < w; ++i) base += scratch[i];
+    return base + x - v;
+  }
+#endif
+};
+#endif
 
 // ---------------------------------------------------------------------------
 // f32 arithmetic as the reference's C floats: round-to-nearest, no
@@ -592,6 +650,32 @@ X3_HD void ctx_update(const Fam& F, int32_t* scr, Lane& R, int fam, int ofbit,
     R.flags |= ofbit;
 }
 
+// Recency ranks after this event's dictionary op (dict.c:132-146): MTF
+// bumps the entries more recent than the hit one and moves it to rank 0; an
+// insert bumps all older entries (the new one, at op_n, has rank 0).  The
+// ranks stay a permutation of the live entries, so tag_of (rank -> tag,
+// the decoder's; nullptr for the encoder) changes exactly where a rank
+// does.  Only changed entries are stored: after an MTF that is the few
+// more recent than the hit one.
+template <class P>
+X3_HD void update_ranks(const P& par, const Shared& sh, int32_t* rank_of,
+                        int32_t* tag_of) {
+  if (sh.op == OP_NONE) return;
+  const bool mtf = sh.op == OP_MTF;
+  for (int e = par.tid(); e < sh.op_n; e += par.nthr()) {
+    const int old = rank_of[e];
+    int rk = old;
+    if (!mtf) rk += 1;
+    else if (e == sh.op_tag) rk = 0;
+    else if (rk < sh.op_r) rk += 1;
+    if (rk != old) {
+      rank_of[e] = rk;
+      if (tag_of) tag_of[rk] = e;
+    }
+  }
+  if (!mtf && tag_of && par.leader()) tag_of[0] = sh.op_n;
+}
+
 // ---------------------------------------------------------------------------
 // One lane, start to finish.
 // ---------------------------------------------------------------------------
@@ -783,16 +867,8 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
     }
     par.sync();
 
-    // (6) dictionary recency ranks (dict.c:132-146): MTF bumps the entries
-    // more recent than the hit one; an insert bumps all older entries
-    if (sh.op == OP_MTF) {
-      for (int e = par.tid(); e < sh.op_n; e += par.nthr()) {
-        if (e == sh.op_tag) rank_of[e] = 0;
-        else if (rank_of[e] < sh.op_r) rank_of[e] += 1;
-      }
-    } else if (sh.op == OP_INSERT) {
-      for (int e = par.tid(); e < sh.op_n; e += par.nthr()) rank_of[e] += 1;
-    }
+    // (6) dictionary recency ranks (dict.c:132-146)
+    update_ranks(par, sh, rank_of, nullptr);
     par.sync();
   }
 

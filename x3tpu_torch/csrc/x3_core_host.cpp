@@ -1,11 +1,12 @@
-// Host build of the encoder core (x3_core.cuh) with one thread per lane:
-// the scan, the probe and the reductions run as plain serial loops
-// (x3::ParHost).  It exists for the CPU tests, which hold the kernel's
-// per-lane logic against the plain PyTorch encoder without a GPU.  Build:
-// g++ -O2 -ffp-contract=off -std=c++17 -shared -fPIC.
+// Host build of the encoder and decoder cores (x3_core.cuh,
+// x3_dec_core.cuh) with one thread per lane: the scan, the probe, the
+// searches and the reductions run as plain serial loops (x3::ParHost).  It
+// exists for the CPU tests, which hold the kernels' per-lane logic against
+// the plain PyTorch codec without a GPU.  Build: g++ -O2 -ffp-contract=off
+// -std=c++17 -shared -fPIC.
 #include <vector>
 
-#include "x3_core.cuh"
+#include "x3_dec_core.cuh"
 
 extern "C" {
 
@@ -36,6 +37,36 @@ int x3h_encode(const uint8_t* text, const int32_t* tlen, int lanes,
     x3::Lane R;
     x3::Shared sh;
     x3::encode_lane(x3::ParHost(), prm, caps, lay, io, R, sh);
+  }
+  return 0;
+}
+
+// Same arguments and outputs as x3_decode in x3_decoder.cu, in host
+// memory; out [lanes, block_bytes] must be zeroed.
+int x3h_decode(const uint32_t* words, const int32_t* byte_lens, int lanes,
+               int iw, int block_bytes, int D, int pair_cap, int items1,
+               int items0, int small_cap, int promo_rows, uint8_t* out,
+               int32_t* out_lens, int32_t* counts, float* sizes,
+               int32_t* flags) {
+  const x3::Caps caps{D, pair_cap, items1, items0, small_cap, promo_rows, 0};
+  const x3::Layout lay = x3::make_layout(caps);
+  std::vector<int32_t> scratch;
+  for (int lane = 0; lane < lanes; ++lane) {
+    scratch.assign(lay.words, 0);
+    x3::DecIO io;
+    io.words = words + (long long)lane * iw;
+    io.nbytes = byte_lens[lane];
+    io.iw = iw;
+    io.scr = scratch.data();
+    io.out = out + (long long)lane * block_bytes;
+    io.block_bytes = block_bytes;
+    io.out_len = out_lens + lane;
+    io.counts = counts + lane * x3::E_LAST;
+    io.sizes = sizes + lane * x3::E_LAST;
+    io.flags = flags + lane;
+    x3::Lane R;
+    x3::Shared sh;
+    x3::decode_lane(x3::ParHost(), lay, io, R, sh);
   }
   return 0;
 }

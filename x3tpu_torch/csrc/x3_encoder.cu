@@ -31,37 +31,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// The device policy: the CTA's threads, block reductions through shared
-// memory, shared-memory atomics for the scan histogram.  nvcc's host pass
-// compiles the kernel's body too; there the policy is the core's one-thread
-// ParHost, which is never run.
-struct ParDev
-#ifndef __CUDA_ARCH__
-    : x3::ParHost
-#endif
-{
-  unsigned long long* scratch;  // >= kThreads / 32 entries, shared
-#ifdef __CUDA_ARCH__
-  __device__ int tid() const { return threadIdx.x; }
-  __device__ int nthr() const { return blockDim.x; }
-  __device__ bool leader() const { return threadIdx.x == 0; }
-  __device__ void sync() const { __syncthreads(); }
-  __device__ void hist_add(int* h, int bin) const { atomicAdd(h + bin, 1); }
-  template <class Op>
-  __device__ uint64_t reduce(uint64_t v, Op op) const {
-    for (int o = 16; o > 0; o >>= 1)
-      v = op(v, (uint64_t)__shfl_down_sync(0xffffffffu, (unsigned long long)v, o));
-    const int w = threadIdx.x >> 5, nw = blockDim.x >> 5;
-    __syncthreads();  // the previous reduction's readers are done
-    if ((threadIdx.x & 31) == 0) scratch[w] = v;
-    __syncthreads();
-    uint64_t r = scratch[0];
-    for (int i = 1; i < nw; ++i) r = op(r, (uint64_t)scratch[i]);
-    return r;
-  }
-#endif
-};
-
 __global__ void __launch_bounds__(kThreads)
 encoder_kernel(const uint8_t* __restrict__ text, const int32_t* __restrict__ tlen,
                int64_t tb, x3::Params prm, x3::Caps caps, x3::Layout lay,
@@ -79,7 +48,7 @@ encoder_kernel(const uint8_t* __restrict__ text, const int32_t* __restrict__ tle
   io.counts = counts + lane * x3::E_LAST;
   io.sizes = sizes + lane * x3::E_LAST;
   io.flags = flags + lane;
-  ParDev par;
+  x3::ParDev par;
   par.scratch = sh.red;
   x3::encode_lane(par, prm, caps, lay, io, R, sh);
 }

@@ -1,5 +1,5 @@
-"""Lane-parallel adaptive frequency models (``x3tpu.models.adaptive``,
-encoder side; ac.c:200-273).  A model is a freq vector [L, M]."""
+"""Lane-parallel adaptive frequency models (``x3tpu.models.adaptive``;
+ac.c:200-273).  A model is a freq vector [L, M]."""
 
 from __future__ import annotations
 
@@ -18,6 +18,16 @@ def model_encode_stats(
     low = (freqs * (iota(M, freqs.device)[None, :] < sym[:, None])).sum(1)
     span = freqs.gather(1, sym.clamp(max=M - 1)[:, None])[:, 0]
     return low, span, freqs.sum(1)
+
+
+def model_decode_sym(freqs: torch.Tensor, value: torch.Tensor):
+    """The symbol whose interval holds ``value`` [L]: with the exclusive
+    prefix ``cum``, sym = (number of symbols with a nonzero freq and
+    cum <= value) - 1, at least 0.  Returns (sym, low_f, span)."""
+    cum = freqs.cumsum(1) - freqs
+    sym = (((freqs > 0) & (cum <= value[:, None])).sum(1) - 1).clamp(min=0)
+    return (sym, cum.gather(1, sym[:, None])[:, 0],
+            freqs.gather(1, sym[:, None])[:, 0])
 
 
 def model_inc(freqs: torch.Tensor, sym: torch.Tensor,

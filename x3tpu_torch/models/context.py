@@ -1,6 +1,6 @@
 """Lane-parallel order-1/order-2 context tables with three-tier storage
-(``x3tpu.models.context``, encode side; the tiers and the pair map folded
-into the order-1 family are described in its docstring).
+(``x3tpu.models.context``; the tiers and the pair map folded into the
+order-1 family are described in its docstring).
 
   * hub — context id 0, one full-capacity row per lane;
   * small pool — [S, CS] rows for ids >= 1;
@@ -154,6 +154,25 @@ def ctx_encode_stats(fam: CtxFamily, v: CtxView, pos: torch.Tensor):
     at = base + torch.minimum(pos, width - 1)
     low = (live * (ii < at[:, None])).sum(1)
     return low, rows.gather(1, at[:, None])[:, 0], live.sum(1)
+
+
+def ctx_decode_pos(fam: CtxFamily, v: CtxView, value: torch.Tensor):
+    """The item whose cumulative interval in the context's throwaway model
+    holds ``value`` (index_of_value, ac.c:167-179): pos = (number of live
+    items with cum <= value) - 1, at least 0.  Returns (pos, tag at pos,
+    low_f, span); past the live items the span is 0."""
+    hw = _hub_width(fam)
+    base, end, _ = _tier(fam, v, hw)
+    freqs = _cat_rows(fam.hub_freqs, fam.freqs, fam.big_freqs, v, hw)
+    ii = iota(freqs.shape[1], value.device)[None, :]
+    live = (ii >= base[:, None]) & (ii < end[:, None])
+    f = freqs * live             # zero outside the tier: cum starts at base
+    cum = f.cumsum(1) - f
+    pos = ((live & (cum <= value[:, None])).sum(1) - 1).clamp(min=0)
+    at = (base + pos)[:, None]
+    tags = _cat_rows(fam.hub_tags, fam.tags, fam.big_tags, v, hw)
+    return (pos, tags.gather(1, at)[:, 0], cum.gather(1, at)[:, 0],
+            f.gather(1, at)[:, 0])
 
 
 def _any(mask: torch.Tensor) -> bool:

@@ -12,7 +12,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from x3tpu.config import MAX_MATCH_LEN
+from x3tpu_torch.config import MAX_MATCH_LEN
 from x3tpu_torch.ops import const, iota
 
 I64 = torch.int64

@@ -1,4 +1,4 @@
-"""Lane-parallel bit sink, arithmetic encoder and match finding."""
+"""Lane-parallel bit sink and source, arithmetic coder and match finding."""
 
 from typing import Dict, Tuple
 

@@ -1,5 +1,5 @@
-"""Lane-parallel 31-bit arithmetic encoder with closed-form renormalization
-(the encoder half of ``x3tpu.ops.ac``; derivations in its docstring).
+"""Lane-parallel 31-bit arithmetic coder with closed-form renormalization
+(``x3tpu.ops.ac``; derivations in its docstring).
 
 u32 values are held in int64 and reduced mod 2^32 with ``M32`` wherever
 the JAX version relies on u32 wraparound (``sub = (HALF << m) - HALF``).
@@ -16,9 +16,11 @@ import torch
 from x3tpu_torch.ops.bitio import (
     M32,
     BitSink,
+    BitSource,
     bitrev32,
     sink_put_bit,
     sink_put_bits,
+    source_get_bits,
 )
 
 I64 = torch.int64
@@ -33,6 +35,12 @@ class AcEnc(NamedTuple):
     low: torch.Tensor    # int64 [L], u32 values
     high: torch.Tensor   # int64 [L], u32 values
     scale: torch.Tensor  # int64 [L]
+
+
+class AcDec(NamedTuple):
+    low: torch.Tensor    # int64 [L], u32 values
+    high: torch.Tensor   # int64 [L], u32 values
+    buf: torch.Tensor    # int64 [L], u32 values
 
 
 def enc_init(lanes: int, device="cpu") -> AcEnc:
@@ -130,3 +138,54 @@ def ac_flush(enc: AcEnc, sink: BitSink, active: torch.Tensor) -> BitSink:
         sink = sink_put_bits(sink, (1 << chunk) - 1, chunk, do)
         remaining = remaining - chunk * do
     return sink
+
+
+# ---------------------------------------------------------------------------
+# Decoder
+# ---------------------------------------------------------------------------
+
+
+def dec_init(src: BitSource) -> Tuple[AcDec, BitSource]:
+    """Prime the decode buffer with exactly 31 bits, MSB-first
+    (ac.c:133-140)."""
+    every = torch.ones_like(src.widx, dtype=torch.bool)
+    src, raw = source_get_bits(src, torch.full_like(src.widx, 31), every)
+    z = torch.zeros_like(src.widx)
+    return AcDec(z, z + TOP, bitrev32(raw) >> 1), src
+
+
+def ac_decode_value(dec: AcDec, total: torch.Tensor):
+    """(step, value) of the pending symbol (ac.c:128-131, ac.c:183-185):
+    exact u32 divisions, each divisor at least 1 (a corrupt stream can
+    reach step 0)."""
+    step = ((dec.high - dec.low + 1) & M32) // total.clamp(min=1)
+    value = ((dec.buf - dec.low) & M32) // step.clamp(min=1)
+    return step, value
+
+
+def ac_decode_update(dec: AcDec, src: BitSource, step: torch.Tensor,
+                     low_f: torch.Tensor, high_f: torch.Tensor,
+                     active: torch.Tensor) -> Tuple[AcDec, BitSource]:
+    """Narrow to the decoded symbol's interval and renormalize, consuming
+    n+m stream bits in one read (ac.c:142-165, ac.c:192-195).  A corrupt
+    stream can leave a wrapped interval whose bounds differ in bit 31;
+    there n is taken as 0, and n+m stays at most 31."""
+    high = (dec.low + step * high_f - 1) & M32
+    low = (dec.low + step * low_f) & M32
+    n, v, low2, high2, m = _renorm_counts(low, high)
+    n = n.clamp(min=0)
+    k = (n + m) * active
+    src, raw = source_get_bits(src, k, active)
+    # stream bits arrive LSB-first; the decoder shifts them in MSB-first
+    # (k = 0 reads nothing, and the shift is then 0)
+    grp = bitrev32(raw) >> ((32 - k) & 31)
+    # E1/E2: buf1 = (buf << n) - (v << 31) + (first n bits of grp); E3:
+    # buf2 = (buf1 << m) - H(2^m - 1) + (last m bits), that is
+    # ((buf << n) - (v << 31) - H) * 2^m + grp + H (mod 2^32)
+    buf1 = ((dec.buf << n) - ((v & 1) << 31) - HALF) & M32
+    buf2 = ((buf1 << m) + grp + HALF) & M32
+    return AcDec(
+        torch.where(active, low2, dec.low),
+        torch.where(active, high2, dec.high),
+        torch.where(active, buf2, dec.buf),
+    ), src

@@ -1,4 +1,4 @@
-"""Lane-parallel bit sink (the write half of ``x3tpu.ops.bitio``).
+"""Lane-parallel bit sink and bit source (``x3tpu.ops.bitio``).
 
 LSB-first packing into little-endian u32 words, all L lanes at once under
 an ``active`` mask.  Torch on the CPU has no uint32 shifts, so u32 values
@@ -10,7 +10,7 @@ fresh in a new :class:`BitSink`.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -18,6 +18,7 @@ from x3tpu_torch.ops import iota
 
 I64 = torch.int64
 M32 = 0xFFFFFFFF
+SENTINEL = 0x80000000  # read-past-end word (bio.c:38)
 
 
 class BitSink(NamedTuple):
@@ -95,3 +96,48 @@ def sink_put_bits(sink: BitSink, value: torch.Tensor, count: torch.Tensor,
     end_bit = sink.nbits + cnt
     overflow = sink.overflow | ((cnt > 0) & (end_bit > cap * 32))
     return BitSink(sink.words, end_bit, overflow)
+
+
+class BitSource(NamedTuple):
+    """Per-lane read stream mirroring struct bio in READ mode."""
+
+    words: torch.Tensor   # int64 [L, IW], u32 values
+    nwords: torch.Tensor  # int64 [L] readable words (end-minus-3 rule, bio.c:11)
+    widx: torch.Tensor    # int64 [L]
+    acc: torch.Tensor     # int64 [L] current word (bio.b), u32 value
+    used: torch.Tensor    # int64 [L] bits consumed of acc (init 32)
+
+
+def source_init(words: torch.Tensor, byte_lens: torch.Tensor) -> BitSource:
+    """``byte_lens`` are the per-lane compressed sizes in bytes; a word at
+    byte offset o is readable iff o < size - 3 (bio.c:30-42)."""
+    lanes = words.shape[0]
+    z = torch.zeros((lanes,), dtype=I64, device=words.device)
+    return BitSource(
+        words=words,
+        nwords=((byte_lens.to(I64) - 4).div(4, rounding_mode="floor")
+                + 1).clamp(min=0),
+        widx=z, acc=z, used=z + 32,
+    )
+
+
+def source_get_bits(src: BitSource, count: torch.Tensor,
+                    active: torch.Tensor) -> Tuple[BitSource, torch.Tensor]:
+    """Read up to 31 bits per active lane (first stream bit in the LSB);
+    at most one word reload, and words past ``nwords`` read as the
+    sentinel 0x80000000 (bitio.source_get_bits).  ``acc`` holds the
+    32 - used bits not yet read, so a reload appends the next word above
+    them."""
+    cnt = count * active
+    avail = 32 - src.used
+    need2 = cnt > avail
+    cur = src.words.gather(
+        1, src.widx.clamp(max=src.words.shape[1] - 1)[:, None])[:, 0]
+    loaded = torch.where(src.widx < src.nwords, cur, SENTINEL)
+    # avail < cnt <= 31 where the word is appended
+    bits = torch.where(need2, src.acc | (loaded << avail.clamp(max=31)),
+                       src.acc)
+    return BitSource(
+        src.words, src.nwords, src.widx + need2, bits >> cnt,
+        src.used + cnt - 32 * need2,
+    ), bits & ((1 << cnt) - 1)

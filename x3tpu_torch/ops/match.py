@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from x3tpu.config import MAX_MATCH_LEN, X3Params
+from x3tpu_torch.config import MAX_MATCH_LEN, X3Params
 from x3tpu_torch.models.dictionary import DictState, dict_probe_len
 from x3tpu_torch.ops import iota
 

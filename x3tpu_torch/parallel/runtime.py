@@ -1,11 +1,13 @@
-"""Compression runtime of the port (the encode path of
-``x3tpu.parallel.runtime``): block splitting, capacity heuristics, waves of
-independent blocks on one device, overflow auto-retry, container framing.
+"""Runtime of the port (``x3tpu.parallel.runtime`` on one device): block
+splitting, capacity heuristics, waves of independent blocks, overflow
+auto-retry, container framing; ``compress`` and ``decompress``.
 
 The engine follows the device and nothing else: ``device="cuda"`` runs the
-CUDA encoder kernel (``x3tpu_torch.vm.driver``) and raises without a card,
-``device="cpu"`` runs the plain PyTorch encoder (``x3tpu_torch.codec``).
-A configuration the kernel cannot run raises; nothing is demoted.
+CUDA kernels (``x3tpu_torch.vm.driver``) and raises without a card,
+``device="cpu"`` runs the plain PyTorch codec (``x3tpu_torch.codec``).
+A configuration the kernels cannot run raises; nothing is demoted.  Not
+ported: dictionary seeds and the warm tape (a container that carries
+either raises ``NotImplementedError``), the device mesh, the wave journal.
 """
 
 from __future__ import annotations
@@ -16,11 +18,10 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from x3tpu.config import CodecCaps, X3Params
-from x3tpu.parallel import blocks as blk
-from x3tpu.utils.stats import CodecStats
 from x3tpu_torch import codec
-from x3tpu_torch.config import resolve_device
+from x3tpu_torch.config import CodecCaps, X3Params, resolve_device
+from x3tpu_torch.parallel import blocks as blk
+from x3tpu_torch.utils.stats import CodecStats
 
 
 MAX_RETRIES = 3  # capacity doublings before an overflow is raised
@@ -88,6 +89,21 @@ def _encode_one_device(text: np.ndarray, tlen: np.ndarray, params: X3Params,
     return codec.encode_blocks_chunked(text_t, tlen_t, params, caps)
 
 
+def _decode_one_device(words: np.ndarray, byte_lens: np.ndarray,
+                       caps: CodecCaps, device: torch.device):
+    """Decode one packed wave (``words`` u32 [L, IW]) on ``device``: the
+    CUDA kernel for a CUDA device, the plain PyTorch decoder for the
+    CPU."""
+    if device.type == "cuda":
+        from x3tpu_torch.vm import driver
+
+        return driver.decode_blocks_cuda(
+            torch.from_numpy(words.view(np.int32)).to(device),
+            torch.from_numpy(byte_lens).to(device), caps)
+    return codec.decode_blocks_chunked(torch.from_numpy(words.astype(np.int64)),
+                                       torch.from_numpy(byte_lens), caps)
+
+
 def encode_wave(
     blocks_in: Sequence[bytes],
     params: X3Params,
@@ -125,6 +141,53 @@ def encode_wave(
     return RunResult(payloads, stats)
 
 
+def decode_wave(
+    payloads: Sequence[bytes],
+    orig_lens: Sequence[Optional[int]],
+    caps: CodecCaps,
+    device="cuda",
+) -> RunResult:
+    """Decode one wave of streams with capacity auto-retry: an output
+    overflow doubles ``block_bytes``, any overflow doubles the state caps,
+    up to MAX_RETRIES times.  A block whose decoded length is not its
+    ``orig_lens`` entry (None: any length) raises ValueError."""
+    dev = resolve_device(device)
+    nblocks = len(payloads)
+    iw = max(1, max((len(s) + 3) // 4 for s in payloads))
+    words = np.zeros((nblocks, iw), np.uint32)
+    byte_lens = np.zeros((nblocks,), np.int32)
+    for i, s in enumerate(payloads):
+        arr = np.frombuffer(s + b"\x00" * (-len(s) % 4), "<u4")
+        words[i, : len(arr)] = arr
+        byte_lens[i] = len(s)
+    for attempt in range(MAX_RETRIES + 1):
+        out, out_lens, counts, sizes, overflow = _decode_one_device(
+            words, byte_lens, caps, dev)
+        try:
+            codec._check_overflow(overflow)
+            break
+        except codec.X3CapacityError as e:
+            if attempt == MAX_RETRIES:
+                raise
+            caps = caps.scaled(2)
+            if "out" in e.flags:
+                caps = dataclasses.replace(caps,
+                                           block_bytes=caps.block_bytes * 2)
+    out_np = out.cpu().numpy()
+    lens_np = out_lens.cpu().numpy()
+    results = []
+    for i in range(nblocks):
+        n = int(lens_np[i])
+        if orig_lens[i] is not None and orig_lens[i] != n:
+            raise ValueError(f"block {i}: decoded {n} bytes, expected "
+                             f"{orig_lens[i]}")
+        results.append(out_np[i, :n].tobytes())
+    stats = CodecStats.from_arrays(
+        counts[:nblocks].cpu().numpy(), sizes[:nblocks].cpu().numpy()
+    )
+    return RunResult(results, stats)
+
+
 def compress(
     data: bytes,
     params: X3Params = X3Params(),
@@ -136,7 +199,7 @@ def compress(
 ) -> bytes:
     """Compress ``data``.  Single block -> raw reference-format stream;
     multiple blocks -> X3TC container with per-block reference-format
-    payloads (``x3tpu.parallel.blocks``)."""
+    payloads (``x3tpu_torch.parallel.blocks``)."""
     if block_bytes is None:
         block_bytes = max(len(data), 1)
     parts = blk.split_blocks(data, block_bytes)
@@ -161,3 +224,41 @@ def compress(
         return all_payloads[0]
     return blk.pack_container(all_payloads, [len(p) for p in parts],
                               block_bytes)
+
+
+def decompress(
+    data: bytes,
+    caps: Optional[CodecCaps] = None,
+    max_output: Optional[int] = None,
+    stats_out: Optional[list] = None,
+    lanes_per_device: int = 32,
+    device="cuda",
+) -> bytes:
+    """Decompress a raw reference-format stream or an X3TC container.  The
+    stream is self-describing: no parameter shapes decoding.  A raw
+    stream's output size is not recorded, so its buffer starts from a 64:1
+    guess (``max_output`` overrides it) and grows on overflow."""
+    if blk.is_container(data):
+        payloads, orig_lens, block_bytes = blk.unpack_container(data)
+        caps = caps or caps_for_block(max(block_bytes, 1024))
+        if caps.block_bytes < block_bytes:
+            caps = dataclasses.replace(caps, block_bytes=block_bytes)
+        out_parts: List[bytes] = []
+        all_stats = CodecStats.zero()
+        wave = _wave_lanes(len(payloads), lanes_per_device)
+        for i in range(0, len(payloads), wave):
+            res = decode_wave(payloads[i : i + wave], orig_lens[i : i + wave],
+                              caps, device=device)
+            out_parts.extend(res.payloads)
+            all_stats = all_stats.merge(res.stats)
+        if stats_out is not None:
+            stats_out.append(all_stats)
+        return b"".join(out_parts)
+    guess = max_output or max(64 * len(data), 1 << 16)
+    caps = caps or caps_for_block(guess)
+    if caps.block_bytes < guess:
+        caps = dataclasses.replace(caps, block_bytes=guess)
+    res = decode_wave([data], [None], caps, device=device)
+    if stats_out is not None:
+        stats_out.append(res.stats)
+    return res.payloads[0]

@@ -1,12 +1,15 @@
-"""Driver of the CUDA encoder kernel K1 (the encode half of
-``x3tpu.vm.driver``): builds ``csrc/x3_encoder.cu`` with nvcc at first use,
-loads it with ctypes, checks the inputs, allocates state and outputs, and
-launches one kernel per wave.
+"""Driver of the CUDA kernels K1 (encoder) and K2 (decoder), the port of
+``x3tpu.vm.driver``: builds ``csrc/x3_encoder.cu`` and ``csrc/x3_decoder.cu``
+with nvcc at first use (one nvcc per source, run side by side), loads them
+with ctypes, checks the inputs, allocates state and outputs, and launches
+one kernel per wave.
 
 :func:`encode_blocks_cuda` has the contract of
 ``x3tpu_torch.codec.encode_blocks_chunked``: (words [L, out_words] u32 in
-int64, byte_lens, counts, sizes, Overflow).  Nothing falls back: a failed
-build or launch raises, and so does a tensor that is not on a CUDA device.
+int64, byte_lens, counts, sizes, Overflow); :func:`decode_blocks_cuda` that
+of ``codec.decode_blocks_chunked``: (out u8 [L, block_bytes], out_lens,
+counts, sizes, Overflow).  Nothing falls back: a failed build or launch
+raises, and so does a tensor that is not on a CUDA device.
 """
 
 from __future__ import annotations
@@ -18,15 +21,17 @@ import pathlib
 import shutil
 import subprocess
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
-from x3tpu.config import CodecCaps, X3Params
+from x3tpu_torch.config import CodecCaps, X3Params
 from x3tpu_torch import codec
 
 # launches of each kernel since the last reset (the main-path check)
-LAUNCHES = {"encoder": 0}
+LAUNCHES = {"encoder": 0, "decoder": 0}
+# kernel -> its source; each builds into a library of its own
+SOURCES = {"encoder": "x3_encoder.cu", "decoder": "x3_decoder.cu"}
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -40,8 +45,8 @@ NVCC_FLAGS = (
 OF_DICT, OF_CTX0, OF_CTX1, OF_PAIRS, OF_OUT, OF_STEPS = 1, 2, 4, 8, 16, 32
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-BUILD_LOG = ""   # nvcc's output of the build this process made (ptxas -v)
+_libs: Optional[Dict[str, ctypes.CDLL]] = None
+BUILD_LOG = ""   # nvcc's output of the builds this process made (ptxas -v)
 
 
 def _nvcc() -> str:
@@ -51,52 +56,71 @@ def _nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("x3tpu_torch: nvcc not found (needed to build the "
-                       "CUDA encoder kernel)")
+                       "CUDA kernels)")
 
 
-def library_path() -> pathlib.Path:
-    """The kernel library for the current sources and flags."""
+def library_path(kernel: str) -> pathlib.Path:
+    """A kernel's library for the current sources and flags (the hash
+    covers every csrc/*.cu and *.cuh: the kernels share headers)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode() + b"\0" + src.read_bytes())
-    return BUILD_DIR / f"libx3enc_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libx3{kernel}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> pathlib.Path:
-    """Compile the kernel unless this source hash is already built; the
-    library is renamed into place, so concurrent builds are safe."""
+def build() -> Dict[str, pathlib.Path]:
+    """Compile every kernel whose library for this source hash is missing,
+    one nvcc per source, all started together.  Libraries are renamed into
+    place, so concurrent builds are safe."""
     global BUILD_LOG
-    lib = library_path()
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "x3_encoder.cu")]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    BUILD_LOG = r.stdout + r.stderr
-    os.replace(tmp, lib)
-    return lib
+    libs = {k: library_path(k) for k in SOURCES}
+    todo = {k: lib for k, lib in libs.items() if not lib.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for k, lib in todo.items():
+            tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[k])]
+            procs[k] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        logs, failed = [], []
+        for k, (tmp, proc) in procs.items():
+            out = proc.communicate()[0]
+            logs.append(f"[{SOURCES[k]}]\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc {SOURCES[k]} failed "
+                              f"({proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, todo[k])
+        BUILD_LOG = "".join(logs)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return libs
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
+def _load() -> Dict[str, ctypes.CDLL]:
+    global _libs
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+        if _libs is None:
+            libs = {k: ctypes.CDLL(str(path)) for k, path in build().items()}
             i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-            lib.x3_scratch_words.restype = ll
-            lib.x3_scratch_words.argtypes = [i] * 6
-            lib.x3_encode.restype = i
-            lib.x3_encode.argtypes = [p, p, i, ll] + [i] * 12 + [p] * 7
-            _lib = lib
-        return _lib
+            enc, dec = libs["encoder"], libs["decoder"]
+            enc.x3_scratch_words.restype = ll
+            enc.x3_scratch_words.argtypes = [i] * 6
+            enc.x3_encode.restype = i
+            enc.x3_encode.argtypes = [p, p, i, ll] + [i] * 12 + [p] * 7
+            dec.x3_decode.restype = i
+            dec.x3_decode.argtypes = [p, p] + [i] * 9 + [p] * 7
+            _libs = libs
+        return _libs
 
 
 def scratch_words(caps: CodecCaps) -> int:
-    """int32 words of dictionary and context state one lane needs."""
-    return _load().x3_scratch_words(
+    """int32 words of dictionary and context state one lane needs (the
+    same layout for both kernels)."""
+    return _load()["encoder"].x3_scratch_words(
         caps.dict_cap, caps.pair_cap, caps.ctx_items_cap,
         caps.ctx0_items_cap, caps.ctx_small_cap, caps.ctx_promo_rows)
 
@@ -125,7 +149,7 @@ def encode_blocks_cuda(text: torch.Tensor, tlen: torch.Tensor,
         raise ValueError("text and tlen must be on the same device")
     if lanes and int(tlen.max()) > caps.block_bytes:
         raise ValueError("a block is larger than caps.block_bytes")
-    lib = _load()
+    lib = _load()["encoder"]
     dev = text.device
     with torch.cuda.device(dev):
         scratch = torch.zeros((lanes, scratch_words(caps)), dtype=torch.int32,
@@ -151,10 +175,56 @@ def encode_blocks_cuda(text: torch.Tensor, tlen: torch.Tensor,
             LAUNCHES["encoder"] += 1
         if bool((flags & OF_STEPS).any()):
             raise RuntimeError("x3_encode: a lane ran more events than bytes")
-    overflow = codec.Overflow(
+    return (words.to(torch.int64) & 0xFFFFFFFF, byte_lens.to(torch.int64),
+            counts.to(torch.int64), sizes, _overflow(flags))
+
+
+def _overflow(flags: torch.Tensor) -> codec.Overflow:
+    return codec.Overflow(
         dict=(flags & OF_DICT) != 0, ctx0=(flags & OF_CTX0) != 0,
         ctx1=(flags & OF_CTX1) != 0, pairs=(flags & OF_PAIRS) != 0,
         out=(flags & OF_OUT) != 0,
     )
-    return (words.to(torch.int64) & 0xFFFFFFFF, byte_lens.to(torch.int64),
-            counts.to(torch.int64), sizes, overflow)
+
+
+def decode_blocks_cuda(words: torch.Tensor, byte_lens: torch.Tensor,
+                       caps: CodecCaps):
+    """Decode L streams with kernel K2: ``words`` i32 [L, IW] (the streams'
+    little-endian u32 words, bit for bit) and ``byte_lens`` i32 [L], both
+    on one CUDA device.  A lane still decoding after block_bytes + 1 events
+    raises ValueError (a valid stream emits a byte with every event but
+    EOF); nothing hangs on a corrupt stream."""
+    lanes = words.shape[0] if isinstance(words, torch.Tensor) else 0
+    iw = words.shape[1] if lanes else 0
+    _check("words", words, torch.int32, (lanes, iw))
+    _check("byte_lens", byte_lens, torch.int32, (lanes,))
+    if byte_lens.device != words.device:
+        raise ValueError("words and byte_lens must be on the same device")
+    if lanes and iw < 1:
+        raise ValueError("words needs at least one column")
+    lib = _load()["decoder"]
+    dev = words.device
+    with torch.cuda.device(dev):
+        scratch = torch.zeros((lanes, scratch_words(caps)), dtype=torch.int32,
+                              device=dev)
+        out = torch.zeros((lanes, caps.block_bytes), dtype=torch.uint8,
+                          device=dev)
+        out_lens = torch.empty((lanes,), dtype=torch.int32, device=dev)
+        counts = torch.empty((lanes, 5), dtype=torch.int32, device=dev)
+        sizes = torch.empty((lanes, 5), dtype=torch.float32, device=dev)
+        flags = torch.empty((lanes,), dtype=torch.int32, device=dev)
+        if lanes:
+            rc = lib.x3_decode(
+                words.data_ptr(), byte_lens.data_ptr(), lanes, iw,
+                caps.block_bytes, caps.dict_cap, caps.pair_cap,
+                caps.ctx_items_cap, caps.ctx0_items_cap, caps.ctx_small_cap,
+                caps.ctx_promo_rows, scratch.data_ptr(), out.data_ptr(),
+                out_lens.data_ptr(), counts.data_ptr(), sizes.data_ptr(),
+                flags.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"x3_decode launch failed: cudaError {rc}")
+            LAUNCHES["decoder"] += 1
+        if bool((flags & OF_STEPS).any()):
+            raise codec.malformed(caps.block_bytes + 1)
+    return (out, out_lens.to(torch.int64), counts.to(torch.int64), sizes,
+            _overflow(flags))
