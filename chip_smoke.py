@@ -9,8 +9,9 @@ exit at the first failure:
    csrc/x3_decoder.cu, one nvcc each, side by side);
 2. the encoder kernel K1 against its plain PyTorch version on the card:
    the golden inputs of each golden paramset (the 20 golden streams byte
-   for byte), small capacities where every overflow flag fires, and
-   magic factor 2;
+   for byte), small capacities where every overflow flag fires, magic
+   factor 2, and a dictionary too large for shared memory (dict_cap 8192:
+   K1 keeps its strings in global memory);
 3. the decoder kernel K2 against its plain PyTorch version on the card:
    the 20 golden streams (each must give its input) and K1's tiny-caps
    streams, where the state flags fire while decoding;
@@ -29,6 +30,7 @@ The last line is one JSON object, {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launches, errors, times and bounds.
 """
 
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -234,6 +236,24 @@ def main() -> int:
     against_plain("magic_factor2=2",
                   [text_small, inputs[names.index("c_source")][:PLAIN_BLOCK]],
                   X3Params(magic_factor2=2), small)
+    # K1's shared-memory plan leaves the dictionary strings in global
+    # memory at dict_cap 8192; the streams stay the golden ones
+    wide = dataclasses.replace(small, dict_cap=8192)
+    plan = driver.smem_plan(paramsets["t15_w8"], wide)
+    if "strs" in plan.offsets:
+        raise AssertionError(f"dict_cap 8192: the plan holds the strings "
+                             f"({plan})")
+    pair = ["text_tiny", "text_small"]
+    out, _, _ = against_plain("dictionary in global memory",
+                              [inputs[names.index(n)] for n in pair],
+                              paramsets["t15_w8"], wide)
+    for n, stream in zip(pair, codec.streams_from_words(out[0], out[1], 2)):
+        if stream != (golden / f"{n}.t15_w8.x3").read_bytes():
+            raise AssertionError(f"dictionary in global memory: {n} is not "
+                                 f"the golden stream")
+    print(f"dictionary in global memory: 2 golden streams byte-identical "
+          f"(shared memory holds {sorted(plan.offsets)}, {plan.nbytes} B)",
+          flush=True)
     phase("K1 vs plain", t0)
 
     # ------------------------------------------------ 3. K2 against plain
@@ -379,6 +399,8 @@ def main() -> int:
         enc = driver.encode_blocks_cuda(text, tlen, params, caps)
         row["K1"], row["K1_runs"] = kernel_ms(
             lambda: driver.encode_blocks_cuda(text, tlen, params, caps))
+        # a wave takes its slowest lane's time: the lane with most events
+        row["events_slowest_lane"] = int(enc[2].sum(1).max())
         payloads = blk.unpack_container(blob)[0]
         words, byte_lens = pack_streams(payloads)
         dec = driver.decode_blocks_cuda(words, byte_lens, caps)
@@ -406,7 +428,10 @@ def main() -> int:
               f"{[round(r, 4) for r in row['decompress_runs']]} s, "
               f"{[round(r, 3) for r in row['K1_runs']]} / "
               f"{[round(r, 3) for r in row['K2_runs']]} ms; peak device "
-              f"memory {row['peak_mib']:.0f} MiB", flush=True)
+              f"memory {row['peak_mib']:.0f} MiB; K1 "
+              f"{row['K1'] * 1e6 / row['events_slowest_lane']:.1f} ns an "
+              f"event of the slowest lane ({row['events_slowest_lane']} "
+              f"events)", flush=True)
 
     # the plain versions at 32 lanes of 4 KiB (a slice of each main-path
     # block, caps_for_block(16 KiB)), held against the kernels
@@ -420,6 +445,11 @@ def main() -> int:
         if dec[0][i, : dec[1][i]].cpu().numpy().tobytes() != b:
             raise AssertionError(f"plain shape: block {i} does not round trip")
     phase("times", t0)
+
+    k1_info = driver.encoder_info()
+    k1_plan = driver.smem_plan(params, caps)
+    print(f"K1: {k1_info}; shared memory plan {k1_plan.nbytes} B "
+          f"({sorted(k1_plan.offsets)})", flush=True)
 
     def kernel_entry(kernel, source, replaces, k_ms, plain_s, k_small_s):
         return {
@@ -441,9 +471,21 @@ def main() -> int:
             "bound_ms_128_lanes": bounds[128][kernel],
         }
 
+    k1_entry = kernel_entry("encoder", "x3tpu_torch/csrc/x3_encoder.cu",
+                            "x3tpu/vm/kernel.py:228", "K1", plain_enc_s, k1_s)
+    k1_entry.update({
+        "smem_bytes": k1_plan.nbytes + k1_info["static_smem"],
+        "smem_dynamic_bytes": k1_plan.nbytes,
+        "registers": k1_info["registers"],
+        "local_bytes": k1_info["local_bytes"],
+        "events_slowest_lane": timing[32]["events_slowest_lane"],
+        "ns_per_event": timing[32]["K1"] * 1e6
+        / timing[32]["events_slowest_lane"],
+        "ns_per_event_128_lanes": timing[128]["K1"] * 1e6
+        / timing[128]["events_slowest_lane"],
+    })
     print(json.dumps({"kernels": [
-        kernel_entry("encoder", "x3tpu_torch/csrc/x3_encoder.cu",
-            "x3tpu/vm/kernel.py:228", "K1", plain_enc_s, k1_s),
+        k1_entry,
         kernel_entry("decoder", "x3tpu_torch/csrc/x3_decoder.cu",
             "x3tpu/vm/kernel_dec.py:112", "K2", plain_dec_s, k2_s),
     ], "compress_mb_s": {str(k): len(data[k]) / 1e6 / v["compress"]

@@ -219,6 +219,18 @@ def test_counts_match_spec(t4_batch):
                                       err_msg=f"block {i}")
 
 
+def test_one_lane_second_veto_factor():
+    """One lane at magic factor 2: the sweep probes every offset of a
+    one-row window, whose slices are contiguous at odd offsets; the stream
+    is x3tpu's."""
+    data = (GOLDEN / "text_small.bin").read_bytes()[:300]
+    params = X3Params(max_match_count=4, window=256, magic_factor2=2)
+    out = _plain([data], params, CodecCaps(dict_cap=256, pair_cap=1024,
+                                           ctx_items_cap=64, block_bytes=1024))
+    assert codec.streams_from_words(out[0], out[1], 1)[0] == host.encode(
+        data, jax_twin(params))
+
+
 def test_pair_overflow_exact_boundary():
     """The pair flag fires for the first id that cannot have its own row,
     and not before: pair_cap == the host codec's pair count is the exact

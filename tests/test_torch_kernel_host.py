@@ -2,7 +2,9 @@
 the encoder K1, ``x3_dec_core.cuh`` for the decoder K2) built for the host
 with g++, one thread per lane, and held against the golden streams and the
 plain PyTorch encoder and decoder.  This is the only route to the kernels'
-logic without a GPU; no module of the package uses this build."""
+logic without a GPU; no module of the package uses this build.  The
+encoder runs with its planes in the scratch and, as K1's shared memory
+holds them, in a buffer of their own (``driver.smem_plan``)."""
 
 import ctypes
 import dataclasses
@@ -18,6 +20,8 @@ import pytest
 from x3tpu import host
 from x3tpu_torch import codec
 from x3tpu_torch.config import X3Params
+from x3tpu_torch.parallel import runtime
+from x3tpu_torch.vm import driver
 
 from conftest import GOLDEN, PARAMSETS, golden_cases
 from test_torch_codec import (OVERFLOW_FLAGS, SMALL_CAPS, SMALL_PARAMS,
@@ -51,15 +55,27 @@ def core():
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.x3h_encode.argtypes = [p, p, i, ctypes.c_longlong] + [i] * 12 + [p] * 5
+    lib.x3h_encode.argtypes = ([p, p, i, ctypes.c_longlong] + [i] * 12
+                               + [ctypes.c_uint] + [p] * 5)
     lib.x3h_encode.restype = i
+    lib.x3h_smem_layout.argtypes = ([i] * 6 + [ctypes.c_longlong, ctypes.c_uint]
+                                    + [p])
+    lib.x3h_smem_layout.restype = None
+    lib.x3h_window_counts.argtypes = [p, i, i, p]
+    lib.x3h_window_counts.restype = None
     lib.x3h_decode.argtypes = [p, p] + [i] * 9 + [p] * 5
     lib.x3h_decode.restype = i
     return lib
 
 
-def _encode(lib, blocks, params, caps):
+# where the encoder core keeps its planes: all in the scratch, or those of
+# K1's plan in a buffer of their own
+PLACEMENTS = ("scratch", "shared")
+
+
+def _encode(lib, blocks, params, caps, placement):
     """The host core's (words, byte_lens, counts, sizes, flags) as arrays."""
+    mask = driver.smem_plan(params, caps).mask if placement == "shared" else 0
     text, tlen = codec.pack_blocks(blocks, params, caps)
     lanes = len(blocks)
     words = np.zeros((lanes, caps.out_words), np.uint32)
@@ -72,26 +88,28 @@ def _encode(lib, blocks, params, caps):
         params.max_match_count, params.window, params.magic_factor1,
         params.magic_factor2, int(params.nl_remap), caps.dict_cap,
         caps.pair_cap, caps.ctx_items_cap, caps.ctx0_items_cap,
-        caps.ctx_small_cap, caps.ctx_promo_rows, caps.out_words,
+        caps.ctx_small_cap, caps.ctx_promo_rows, caps.out_words, mask,
         words.ctypes.data, lens.ctypes.data, counts.ctypes.data,
         sizes.ctypes.data, flags.ctypes.data)
     assert rc == 0
     return words, lens, counts, sizes, flags
 
 
+@pytest.mark.parametrize("placement", PLACEMENTS)
 @pytest.mark.parametrize("pname", sorted(PARAMSETS))
-def test_core_golden_streams(core, pname):
+def test_core_golden_streams(core, pname, placement):
     names = [n for n, p in golden_cases() if p == pname]
     blocks = [(GOLDEN / f"{n}.bin").read_bytes() for n in names]
     words, lens, _, _, flags = _encode(core, blocks, X3Params(**PARAMSETS[pname]),
-                                       SMALL_CAPS)
+                                       SMALL_CAPS, placement)
     assert not flags.any()
     for i, name in enumerate(names):
         got = words[i].tobytes()[: lens[i]]
         assert got == (GOLDEN / f"{name}.{pname}.x3").read_bytes(), name
 
 
-def test_core_matches_plain_with_overflow(core):
+@pytest.mark.parametrize("placement", PLACEMENTS)
+def test_core_matches_plain_with_overflow(core, placement):
     """Every output against the plain encoder, at capacities where the
     dictionary, both context families, the pair map and the output buffer
     overflow: the kernel's flag bits (x3_core.cuh OF_*) are x3tpu's
@@ -99,7 +117,8 @@ def test_core_matches_plain_with_overflow(core):
     overflows its buffer are untouched."""
     plain = plain_tiny()
     words, lens, counts, sizes, flags = _encode(core, _tiny_blocks(),
-                                                TINY_PARAMS, TINY_CAPS)
+                                                TINY_PARAMS, TINY_CAPS,
+                                                placement)
     np.testing.assert_array_equal(words.astype(np.int64), plain[0].numpy())
     np.testing.assert_array_equal(lens, plain[1].numpy())
     np.testing.assert_array_equal(counts, plain[2].numpy())
@@ -109,6 +128,83 @@ def test_core_matches_plain_with_overflow(core):
         np.testing.assert_array_equal(fired, getattr(plain[4], name).numpy(),
                                       err_msg=name)
         assert fired.any(), name
+
+
+def _window_counts_bytewise(text, p, W):
+    """backend.c:66-74 byte by byte: count[i] = positions s in [p+1,
+    p+W-32) whose next i+1 bytes repeat those at p."""
+    counts = np.zeros(32, np.int32)
+    for s in range(p + 1, p + W - 32):
+        r = 0
+        while r < 32 and text[s + r] == text[p + r]:
+            r += 1
+        counts[:r] += 1
+    return counts
+
+
+@pytest.mark.parametrize("kind", ["text", "runs", "random", "zeros"])
+def test_core_window_counts_match_bytewise(core, kind):
+    """The core's word-wide window scan (four positions a word pair, long
+    runs compared on, the last position p+W-33 included) counts as the
+    byte loop does, at every alignment of p."""
+    rng = np.random.default_rng(3)
+    W = 256
+    if kind == "text":
+        body = (GOLDEN / "text_small.bin").read_bytes()[:700]
+    elif kind == "runs":
+        body = b"".join(b" " * int(n) + b"x" for n in rng.integers(0, 40, 60))
+    elif kind == "random":
+        body = rng.integers(0, 4, 700, np.uint8).tobytes()
+    else:
+        body = bytes(700)
+    text = np.zeros(len(body) + W + 64, np.uint8)
+    text[: len(body)] = np.frombuffer(body, np.uint8)
+    out = np.zeros(32, np.int32)
+    for p in range(0, len(body) - W // 2, 37):
+        core.x3h_window_counts(text.ctypes.data, p, W, out.ctypes.data)
+        np.testing.assert_array_equal(out, _window_counts_bytewise(text, p, W),
+                                      err_msg=f"p={p}")
+
+
+CAPS_16K = runtime.caps_for_block(16 * 1024)
+SMEM_BUDGET = driver.SMEM_BLOCK_MAX - driver.SMEM_STATIC
+
+
+def test_smem_plan_at_16k_holds_every_plane():
+    """The main path's caps: every hot plane in shared memory, within what
+    a block may have."""
+    plan = driver.smem_plan(X3Params(), CAPS_16K)
+    assert list(plan.offsets) == list(driver.SMEM_PLANES)
+    assert plan.nbytes <= SMEM_BUDGET
+    assert plan.nbytes + driver.SMEM_STATIC <= driver.SMEM_BLOCK_MAX
+
+
+def test_smem_plan_big_dictionary_stays_global():
+    """At dict_cap 8192 the dictionary strings (256 KiB) stay in global
+    memory; what fits still moves, within the budget."""
+    caps = dataclasses.replace(CAPS_16K, dict_cap=8192)
+    plan = driver.smem_plan(X3Params(), caps)
+    assert "strs" not in plan.offsets
+    assert "text" in plan.offsets and "lens" in plan.offsets
+    assert plan.nbytes <= SMEM_BUDGET
+
+
+@pytest.mark.parametrize("caps", [
+    CAPS_16K, dataclasses.replace(CAPS_16K, dict_cap=8192),
+    CAPS_16K.scaled(2), CAPS_16K.scaled(4), TINY_CAPS,
+], ids=["16k", "dict8192", "16k_x2", "16k_x4", "tiny"])
+def test_smem_plan_matches_core_layout(core, caps):
+    """The plan's offsets and size are the core's own (x3_core.cuh
+    place_smem, exported by the host build)."""
+    params = X3Params()
+    plan = driver.smem_plan(params, caps)
+    out = np.zeros(len(driver.SMEM_PLANES) + 1, np.int64)
+    core.x3h_smem_layout(caps.dict_cap, caps.pair_cap, caps.ctx_items_cap,
+                         caps.ctx0_items_cap, caps.ctx_small_cap,
+                         caps.ctx_promo_rows, codec.text_bytes(params, caps),
+                         plan.mask, out.ctypes.data)
+    want = [plan.offsets.get(n, -1) for n in driver.SMEM_PLANES]
+    assert out.tolist() == want + [plan.nbytes]
 
 
 def _decode(lib, words, byte_lens, caps):

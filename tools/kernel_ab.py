@@ -6,19 +6,22 @@ turns, on the same input: the A/B of a kernel change.
 
 Each tree is the root of a checkout (unpack the parent with ``git archive
 <commit> | tar -x -C <dir>`` into a directory ``.gitignore`` lists).  The
-trees run in the order old, new, new, old (for two trees), each in a
-process of its own that imports that tree's ``x3tpu_torch``: K1 (and K2
-where the tree has it) at 32 lanes of 16 KiB of ``chip_smoke.corpus``,
-median of 5 wrapper calls timed with CUDA events.  One JSON line per run.
+trees run in the order given and then in reverse (old, new, new, old for
+two trees), each in a process of its own that imports that tree's
+``x3tpu_torch``: K1 and K2 at 32 and at 128 lanes of 16 KiB of
+``chip_smoke.corpus``, median of 5 wrapper calls timed with CUDA events,
+and a hash of K1's words and lengths (equal across trees whose streams
+are).  One JSON line per run.
 """
 
+import hashlib
 import json
 import pathlib
 import statistics
 import subprocess
 import sys
 
-LANES, BLOCK = 32, 16 * 1024
+LANES, BLOCK = (32, 128), 16 * 1024
 
 
 def time_tree(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
@@ -28,11 +31,6 @@ def time_tree(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
     from x3tpu_torch.parallel import runtime
     from x3tpu_torch.vm import driver
 
-    data = data_path.read_bytes()
-    params, caps = X3Params(), runtime.caps_for_block(BLOCK)
-    blocks = [data[i : i + BLOCK] for i in range(0, len(data), BLOCK)]
-    text, tlen = codec.pack_blocks(blocks, params, caps)
-    text, tlen = torch.from_numpy(text).cuda(), torch.from_numpy(tlen).cuda()
     driver.build()
 
     def median_ms(fn):
@@ -49,18 +47,28 @@ def time_tree(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
             runs.append(a.elapsed_time(b))
         return statistics.median(runs), runs
 
-    enc = driver.encode_blocks_cuda(text, tlen, params, caps)
+    data = data_path.read_bytes()
+    params, caps = X3Params(), runtime.caps_for_block(BLOCK)
     out = {"tree": str(tree)}
-    out["K1_ms"], out["K1_runs"] = median_ms(
-        lambda: driver.encode_blocks_cuda(text, tlen, params, caps))
-    if hasattr(driver, "decode_blocks_cuda"):
+    for lanes in LANES:
+        blocks = [data[i: i + BLOCK] for i in range(0, lanes * BLOCK, BLOCK)]
+        text, tlen = codec.pack_blocks(blocks, params, caps)
+        text = torch.from_numpy(text).cuda()
+        tlen = torch.from_numpy(tlen).cuda()
+        enc = driver.encode_blocks_cuda(text, tlen, params, caps)
+        # the wave's streams, to hold the trees' outputs against each other
+        out[f"K1_sha_{lanes}"] = hashlib.sha256(
+            enc[0].cpu().numpy().tobytes()
+            + enc[1].cpu().numpy().tobytes()).hexdigest()[:16]
+        out[f"K1_ms_{lanes}"], out[f"K1_runs_{lanes}"] = median_ms(
+            lambda: driver.encode_blocks_cuda(text, tlen, params, caps))
         w = enc[0]
         words = torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
         lens = enc[1].to(torch.int32)
         dec = driver.decode_blocks_cuda(words, lens, caps)
         if int(dec[1].sum()) != int(tlen.sum()):
             raise AssertionError(f"{tree}: K2 did not decode the wave")
-        out["K2_ms"], out["K2_runs"] = median_ms(
+        out[f"K2_ms_{lanes}"], out[f"K2_runs_{lanes}"] = median_ms(
             lambda: driver.decode_blocks_cuda(words, lens, caps))
     return out
 
@@ -80,9 +88,9 @@ def main() -> int:
     print(smi.stdout.strip(), flush=True)
     data_path = root / "build" / "kernel_ab_data.bin"
     data_path.parent.mkdir(parents=True, exist_ok=True)
-    data_path.write_bytes(chip_smoke.corpus(LANES * BLOCK))
+    data_path.write_bytes(chip_smoke.corpus(max(LANES) * BLOCK))
     trees = sys.argv[1:]
-    order = trees + trees[::-1] if len(trees) == 2 else trees
+    order = trees + trees[::-1]
     for tree in order:
         subprocess.run([sys.executable, __file__, "--one", tree,
                         str(data_path)], check=True)

@@ -160,12 +160,12 @@ X3_HD void emit(Lane& R, const DecIO& io, const uint8_t* data, int len) {
 template <class P>
 X3_HD void decode_lane(const P& par, const Layout& L, const DecIO& io,
                        Lane& R, Shared& sh) {
-  int32_t* scr = io.scr;
-  uint8_t* strs = (uint8_t*)(scr + L.strs);
-  int32_t* lens = scr + L.lens;
-  int32_t* rank_of = scr + L.rank_of;
-  int32_t* tag_of = scr + L.tag_of;
-  int32_t* ix = scr + L.ix;
+  const Planes pl = resolve(L, io.scr, nullptr, nullptr);
+  uint8_t* strs = pl.strs;
+  int32_t* lens = pl.lens;
+  int32_t* rank_of = pl.rank_of;
+  int32_t* tag_of = pl.tag_of;
+  int32_t* ix = pl.ix;
   const int D = L.D;
 
   if (par.leader()) {
@@ -270,17 +270,17 @@ X3_HD void decode_lane(const P& par, const Layout& L, const DecIO& io,
       }
     } else if (esym != E_EOF) {
       // (3) hit: resolve contexts, decode the payload by mode (x3.c:57-129)
-      const View vp = view(L.f1, scr, R.hub_n[1], R.prev_c1);
-      const Found fp = find(par, L.f1, scr, vp, R.hub_n[1], R.c1);
-      const View v0 = view(L.f0, scr, R.hub_n[0], fp.found ? fp.pair_id : 0);
-      const View v1 = view(L.f1, scr, R.hub_n[1], R.c1);
+      const View vp = view(pl.f1, R.hub_n[1], R.prev_c1);
+      const Found fp = find(par, pl.f1, vp, R.hub_n[1], R.c1);
+      const View v0 = view(pl.f0, R.hub_n[0], fp.found ? fp.pair_id : 0);
+      const View v1 = view(pl.f1, R.hub_n[1], R.c1);
       const bool c0 = esym == E_CTX0;
-      const Fam& F = c0 ? L.f0 : L.f1;
+      const FamP F = c0 ? pl.f0 : pl.f1;  // a copy: no table's address taken
       const View& v = c0 ? v0 : v1;
       const int hub_n = R.hub_n[c0 ? 0 : 1];
       int ptot;
       if (esym == E_IDX1) ptot = model_stats(par, ix, D, 0).total;
-      else ptot = ctx_stats(par, F, scr, v, hub_n, 0).total;
+      else ptot = ctx_stats(par, F, v, hub_n, 0).total;
       ptot = imax(ptot, 1);
       uint32_t step, value;
       dec_value(R, ptot, step, value);
@@ -291,20 +291,20 @@ X3_HD void decode_lane(const P& par, const Layout& L, const DecIO& io,
         tag = tag_of[imin(ps.sym, D - 1)];
       } else {
         const Row r = row_of(F, v, hub_n);
-        ps = decode_search(par, scr + freqs_of(F, v) + r.at, r.n, false, value);
-        tag = scr[tags_of(F, v) + r.at + ps.sym];  // ps.sym < max(r.n, 1)
+        ps = decode_search(par, freqs_of(F, v) + r.at, r.n, false, value);
+        tag = tags_of(F, v)[r.at + ps.sym];  // ps.sym < max(r.n, 1)
       }
       // (4) contexts: find the tag in both, then update (x3.c:99-127)
-      const Found f0 = find(par, L.f0, scr, v0, R.hub_n[0], tag);
-      const Found f1 = find(par, L.f1, scr, v1, R.hub_n[1], tag);
+      const Found f0 = find(par, pl.f0, v0, R.hub_n[0], tag);
+      const Found f1 = find(par, pl.f1, v1, R.hub_n[1], tag);
       par.sync();  // every thread is done reading R and the tables
       if (par.leader()) {
         dec_update(R, io, step, ps.low, ps.low + ps.span);
         if (esym == E_IDX1) ix[imin(ps.sym, D - 1)] += 1;
         R.sizes[esym] =
             fadd(R.sizes[esym], fadd(sh.evbits, bits(prob(ps.span, ptot))));
-        ctx_update(L.f0, scr, R, 0, OF_CTX0, v0, tag, f0, 0);
-        ctx_update(L.f1, scr, R, 1, OF_CTX1, v1, tag, f1, R.pair_n);
+        ctx_update(pl.f0, R, 0, OF_CTX0, v0, tag, f0, 0, -1);
+        ctx_update(pl.f1, R, 1, OF_CTX1, v1, tag, f1, R.pair_n, -1);
         if (!f1.found) {
           // the encoder's one-early pair flag
           if (R.pair_n >= L.f0.S) R.flags |= OF_PAIRS;

@@ -53,7 +53,8 @@ decoder_kernel(const uint32_t* __restrict__ words,
   io.sizes = sizes + lane * x3::E_LAST;
   io.flags = flags + lane;
   x3::ParDev par;
-  par.scratch = sh.red;
+  par.scratch = &sh.red[0][0];
+  par.n = kThreads;
   x3::decode_lane(par, lay, io, R, sh);
 }
 

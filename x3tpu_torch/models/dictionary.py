@@ -56,8 +56,11 @@ def _prefix_ok(d: DictState, target: torch.Tensor):
     first = ((d.strs[:, :k, 0] == target[:, :1]) & (lens > 0)
              & (iota(k, lens.device)[None, :] < d.n[:, None]))
     lane, e = first.nonzero(as_tuple=True)
+    # a copy: a one-row slice is contiguous at any offset, and an int64
+    # view needs one that is a multiple of 8
     x = (d.strs[lane, e].view(I64)
-         ^ target.contiguous().view(I64)[lane])                 # [m, 4]
+         ^ target.clone(memory_format=torch.contiguous_format)
+         .view(I64)[lane])                                      # [m, 4]
     nbytes = (lens[lane, e][:, None] - 8 * iota(4, lens.device)).clamp(0, 8)
     masks = const(_BYTE_MASKS, lens.device)[nbytes]
     ok = torch.zeros_like(first)

@@ -15,6 +15,7 @@ raises, and so does a tensor that is not on a CUDA device.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import pathlib
@@ -25,7 +26,7 @@ from typing import Dict, Optional
 
 import torch
 
-from x3tpu_torch.config import CodecCaps, X3Params
+from x3tpu_torch.config import MAX_MATCH_LEN, CodecCaps, X3Params
 from x3tpu_torch import codec
 
 # launches of each kernel since the last reset (the main-path check)
@@ -43,6 +44,51 @@ NVCC_FLAGS = (
 
 # per-lane flag bits written by the kernel (x3_core.cuh OF_*)
 OF_DICT, OF_CTX0, OF_CTX1, OF_PAIRS, OF_OUT, OF_STEPS = 1, 2, 4, 8, 16, 32
+
+# shared memory of one CTA (x3_core.cuh): what a block may use on the card,
+# and the most K1's static part takes; the plan's planes get the rest
+SMEM_BLOCK_MAX = 232448
+SMEM_STATIC = 16384
+# the planes K1 may keep in shared memory, hottest first (x3_core.cuh PL_*)
+SMEM_PLANES = ("text", "strs", "lens", "rank_of", "ix", "f1_hub_tags",
+               "f1_hub_freqs", "f1_hub_pair", "f0_hub_tags", "f0_hub_freqs",
+               "f1_n", "f1_promo")
+
+
+@dataclasses.dataclass(frozen=True)
+class SmemPlan:
+    """Where K1 keeps a lane's planes: ``offsets`` maps each plane in the
+    CTA's dynamic shared memory to its byte offset there; the others stay
+    in the lane's global scratch."""
+
+    offsets: Dict[str, int]
+    nbytes: int
+
+    @property
+    def mask(self) -> int:
+        """Bit k: plane k of SMEM_PLANES is in shared memory."""
+        return sum(1 << k for k, name in enumerate(SMEM_PLANES)
+                   if name in self.offsets)
+
+
+def smem_plan(params: X3Params, caps: CodecCaps) -> SmemPlan:
+    """The planes of a launch that go to shared memory: each in order, at a
+    16-byte boundary, while it fits in what a block may have beside K1's
+    static part (x3_core.cuh place_smem packs the same planes the same
+    way).  At ``caps_for_block(16 KiB)`` every plane fits (99 392 bytes);
+    at ``dict_cap`` 8192 the dictionary strings (256 KiB) stay in global
+    memory and the text row, the int32 planes and some of the hubs move."""
+    d = caps.dict_cap
+    sizes = dict.fromkeys(SMEM_PLANES, 4 * d)  # int32 planes of D entries
+    sizes["text"] = codec.text_bytes(params, caps)
+    sizes["strs"] = d * MAX_MATCH_LEN
+    at, offsets = 0, {}
+    for name in SMEM_PLANES:
+        size = -(-sizes[name] // 16) * 16
+        if at + size <= SMEM_BLOCK_MAX - SMEM_STATIC:
+            offsets[name] = at
+            at += size
+    return SmemPlan(offsets, at)
 
 _lock = threading.Lock()
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
@@ -100,21 +146,41 @@ def build() -> Dict[str, pathlib.Path]:
     return libs
 
 
+def _bind_encoder(lib: ctypes.CDLL, phases: bool = False) -> None:
+    """argtypes of K1's entry points (``phases``: the library built with
+    -DX3_PHASES, whose x3_encode takes one more pointer)."""
+    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    lib.x3_scratch_words.restype = ll
+    lib.x3_scratch_words.argtypes = [i] * 6
+    lib.x3_encode.restype = i
+    lib.x3_encode.argtypes = ([p, p, i, ll] + [i] * 12 + [ctypes.c_uint]
+                              + [p] * (8 if phases else 7))
+    lib.x3_encoder_info.restype = i
+    lib.x3_encoder_info.argtypes = [p]
+
+
 def _load() -> Dict[str, ctypes.CDLL]:
     global _libs
     with _lock:
         if _libs is None:
             libs = {k: ctypes.CDLL(str(path)) for k, path in build().items()}
-            i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-            enc, dec = libs["encoder"], libs["decoder"]
-            enc.x3_scratch_words.restype = ll
-            enc.x3_scratch_words.argtypes = [i] * 6
-            enc.x3_encode.restype = i
-            enc.x3_encode.argtypes = [p, p, i, ll] + [i] * 12 + [p] * 7
+            i, p = ctypes.c_int, ctypes.c_void_p
+            _bind_encoder(libs["encoder"])
+            dec = libs["decoder"]
             dec.x3_decode.restype = i
             dec.x3_decode.argtypes = [p, p] + [i] * 9 + [p] * 7
             _libs = libs
         return _libs
+
+
+def encoder_info() -> Dict[str, int]:
+    """K1 as the loaded module has it: registers a thread, static shared
+    memory, local (spill) bytes a thread."""
+    out = (ctypes.c_int * 3)()
+    rc = _load()["encoder"].x3_encoder_info(out)
+    if rc != 0:
+        raise RuntimeError(f"x3_encoder_info failed: cudaError {rc}")
+    return {"registers": out[0], "static_smem": out[1], "local_bytes": out[2]}
 
 
 def scratch_words(caps: CodecCaps) -> int:
@@ -139,8 +205,18 @@ def encode_blocks_cuda(text: torch.Tensor, tlen: torch.Tensor,
                        params: X3Params, caps: CodecCaps):
     """Encode L blocks with kernel K1: ``text`` u8 [L, TB] from
     ``codec.pack_blocks`` and ``tlen`` i32 [L], both on one CUDA device.
-    Every lane's state lives in a zeroed scratch tensor allocated here, so
+    Every lane's state lives in a zeroed scratch tensor allocated here and,
+    for the planes :func:`smem_plan` picks, in the CTA's shared memory, so
     new capacities only reallocate: the kernel takes them at run time."""
+    return _encode_with(text, tlen, params, caps)
+
+
+def _encode_with(text: torch.Tensor, tlen: torch.Tensor, params: X3Params,
+                 caps: CodecCaps, lib: Optional[ctypes.CDLL] = None,
+                 phases: Optional[torch.Tensor] = None):
+    """:func:`encode_blocks_cuda` through ``lib`` (default: the main
+    path's); ``phases`` (i64 [L, slots]) only with a library built with
+    -DX3_PHASES (tools/k1_phases.py)."""
     lanes = text.shape[0] if isinstance(text, torch.Tensor) else 0
     _check("text", text, torch.uint8,
            (lanes, codec.text_bytes(params, caps)))
@@ -149,7 +225,7 @@ def encode_blocks_cuda(text: torch.Tensor, tlen: torch.Tensor,
         raise ValueError("text and tlen must be on the same device")
     if lanes and int(tlen.max()) > caps.block_bytes:
         raise ValueError("a block is larger than caps.block_bytes")
-    lib = _load()["encoder"]
+    lib = lib or _load()["encoder"]
     dev = text.device
     with torch.cuda.device(dev):
         scratch = torch.zeros((lanes, scratch_words(caps)), dtype=torch.int32,
@@ -161,15 +237,17 @@ def encode_blocks_cuda(text: torch.Tensor, tlen: torch.Tensor,
         sizes = torch.empty((lanes, 5), dtype=torch.float32, device=dev)
         flags = torch.empty((lanes,), dtype=torch.int32, device=dev)
         if lanes:
+            extra = () if phases is None else (phases.data_ptr(),)
             rc = lib.x3_encode(
                 text.data_ptr(), tlen.data_ptr(), lanes, text.shape[1],
                 params.max_match_count, params.window, params.magic_factor1,
                 params.magic_factor2, int(params.nl_remap), caps.dict_cap,
                 caps.pair_cap, caps.ctx_items_cap, caps.ctx0_items_cap,
                 caps.ctx_small_cap, caps.ctx_promo_rows, caps.out_words,
-                scratch.data_ptr(), words.data_ptr(), byte_lens.data_ptr(),
-                counts.data_ptr(), sizes.data_ptr(), flags.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
+                smem_plan(params, caps).mask, scratch.data_ptr(),
+                words.data_ptr(), byte_lens.data_ptr(), counts.data_ptr(),
+                sizes.data_ptr(), flags.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream, *extra)
             if rc != 0:
                 raise RuntimeError(f"x3_encode launch failed: cudaError {rc}")
             LAUNCHES["encoder"] += 1
