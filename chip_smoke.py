@@ -22,7 +22,10 @@ exit at the first failure:
    ``x3tpu_torch.compress(..., device="cuda")`` then
    ``x3tpu_torch.decompress(..., device="cuda")``, each run with the
    launch counts set to 0 just before it and read just after: the data
-   comes back, and the decoder's event counts equal the encoder's;
+   comes back, and the decoder's event counts equal the encoder's; then
+   K2 decodes each main-path wave three more times, with every output
+   equal to the first (K2's warps hand work to each other through shared
+   memory, so a race would show as a difference);
 6. times: compress and decompress, each kernel alone, and both plain
    versions against the kernels at 32 lanes of 4 KiB.
 
@@ -354,6 +357,18 @@ def main() -> int:
         print(f"main path {lanes} x 16 KiB: {lanes} blocks round trip, "
               f"event counts {enc_stats.events.tolist()} both ways; ratio "
               f"{len(blob) / len(data[lanes]):.4f}", flush=True)
+        words, byte_lens = pack_streams(payloads)
+        runs = [driver.decode_blocks_cuda(words, byte_lens,
+                                          runtime.caps_for_block(BLOCK))
+                for _ in range(3)]
+        for i, run in enumerate(runs[1:], 2):
+            same(f"main path {lanes} x 16 KiB, decode {i}", "decoder", run,
+                 runs[0], ("out", "out_lens", "counts"))
+            if not torch.equal(run[3], runs[0][3]):
+                raise AssertionError(f"{lanes} lanes: decode {i}'s sizes "
+                                     f"differ from the first's")
+        print(f"main path {lanes} x 16 KiB: three decodes identical",
+              flush=True)
     phase("main path checks", t0)
 
     # ---------------------------------------------------------------- 6. times
@@ -429,7 +444,8 @@ def main() -> int:
               f"{[round(r, 3) for r in row['K1_runs']]} / "
               f"{[round(r, 3) for r in row['K2_runs']]} ms; peak device "
               f"memory {row['peak_mib']:.0f} MiB; K1 "
-              f"{row['K1'] * 1e6 / row['events_slowest_lane']:.1f} ns an "
+              f"{row['K1'] * 1e6 / row['events_slowest_lane']:.1f} ns, K2 "
+              f"{row['K2'] * 1e6 / row['events_slowest_lane']:.1f} ns an "
               f"event of the slowest lane ({row['events_slowest_lane']} "
               f"events)", flush=True)
 
@@ -450,6 +466,9 @@ def main() -> int:
     k1_plan = driver.smem_plan(params, caps)
     print(f"K1: {k1_info}; shared memory plan {k1_plan.nbytes} B "
           f"({sorted(k1_plan.offsets)})", flush=True)
+    k2_info = driver.decoder_info()
+    print(f"K2: {k2_info}; no dynamic shared memory (every plane in the "
+          f"global scratch)", flush=True)
 
     def kernel_entry(kernel, source, replaces, k_ms, plain_s, k_small_s):
         return {
@@ -484,11 +503,21 @@ def main() -> int:
         "ns_per_event_128_lanes": timing[128]["K1"] * 1e6
         / timing[128]["events_slowest_lane"],
     })
-    print(json.dumps({"kernels": [
-        k1_entry,
-        kernel_entry("decoder", "x3tpu_torch/csrc/x3_decoder.cu",
-            "x3tpu/vm/kernel_dec.py:112", "K2", plain_dec_s, k2_s),
-    ], "compress_mb_s": {str(k): len(data[k]) / 1e6 / v["compress"]
+    k2_entry = kernel_entry("decoder", "x3tpu_torch/csrc/x3_decoder.cu",
+                            "x3tpu/vm/kernel_dec.py:112", "K2", plain_dec_s,
+                            k2_s)
+    k2_entry.update({
+        "smem_bytes": k2_info["static_smem"],
+        "smem_dynamic_bytes": 0,
+        "registers": k2_info["registers"],
+        "local_bytes": k2_info["local_bytes"],
+        "events_slowest_lane": timing[32]["events_slowest_lane"],
+        "ns_per_event": timing[32]["K2"] * 1e6
+        / timing[32]["events_slowest_lane"],
+        "ns_per_event_128_lanes": timing[128]["K2"] * 1e6
+        / timing[128]["events_slowest_lane"],
+    })
+    print(json.dumps({"kernels": [k1_entry, k2_entry], "compress_mb_s": {str(k): len(data[k]) / 1e6 / v["compress"]
                          for k, v in timing.items()},
        "decompress_mb_s": {str(k): len(data[k]) / 1e6 / v["decompress"]
                            for k, v in timing.items()}}), flush=True)

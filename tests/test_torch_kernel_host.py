@@ -65,6 +65,13 @@ def core():
     lib.x3h_window_counts.restype = None
     lib.x3h_decode.argtypes = [p, p] + [i] * 9 + [p] * 5
     lib.x3h_decode.restype = i
+    u = ctypes.c_uint
+    lib.x3h_ix_search.argtypes = [p, p, i, i, u, p]
+    lib.x3h_ix_search.restype = None
+    lib.x3h_row_search.argtypes = [p, p, i, u, p]
+    lib.x3h_row_search.restype = None
+    lib.x3h_small_search.argtypes = [p, u, p]
+    lib.x3h_small_search.restype = None
     return lib
 
 
@@ -290,3 +297,58 @@ def test_core_decode_write_at_buffer_edge(core, block):
     assert lens[0] == plain[1][0] and bool(flags[0] & 16) == bool(plain[4].out[0])
     if block == len(data):
         assert out[0].tobytes() == data
+
+
+# The decoder's warp-wide symbol searches (x3_dec_core.cuh), as the host
+# build runs them (32 lanes in one thread), against the serial searches of
+# x3tpu's decoder, at every value from 0 to two past the model's total.
+
+
+@pytest.mark.parametrize("ixn", [0, 1, 2, 31, 32, 33, 1023, 1024])
+def test_core_ix_search_matches_decode_search(core, ixn):
+    """The index model kept as an inclusive cumulative sum over its ixn
+    live entries (ixn: the dictionary's size, or 1 where a corrupt stream
+    hit entry 0 of an empty dictionary): ix_search's symbol, low, span and
+    tag equal decode_search(ix, D, by_freq=True) and tag_of[sym], values
+    at or past the total included."""
+    D = 1024
+    rng = np.random.default_rng(100 + ixn)
+    ix = np.zeros(D, np.int32)
+    ix[:ixn] = rng.integers(1, 9, ixn)
+    tag_of = rng.permutation(D).astype(np.int32)
+    out = np.zeros(8, np.int32)
+    for value in range(int(ix.sum()) + 3):
+        core.x3h_ix_search(ix.ctypes.data, tag_of.ctypes.data, D, ixn, value,
+                           out.ctypes.data)
+        assert out[:4].tolist() == out[4:].tolist(), f"value {value}"
+
+
+@pytest.mark.parametrize("n", [0, 1, 16, 32, 33, 256, 1024, 1500])
+def test_core_row_search_matches_decode_search(core, n):
+    """A context row of n live items (16 small, 256 big, up to 1024 a hub,
+    and past it): chunk_bases' total is the row's sum, and wsearch's
+    symbol, low, span and tag equal decode_search(row, n, by_freq=False)
+    and the tag at sym (zero freqs included)."""
+    rng = np.random.default_rng(200 + n)
+    f = rng.integers(0, 6, max(n, 1)).astype(np.int32)
+    tags = rng.integers(0, 1 << 20, max(n, 1)).astype(np.int32)
+    out = np.zeros(10, np.int32)
+    for value in range(int(f[:n].sum()) + 3):
+        core.x3h_row_search(f.ctypes.data, tags.ctypes.data, n, value,
+                            out.ctypes.data)
+        assert out[:5].tolist() == out[5:].tolist(), f"value {value}"
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_core_char_and_length_search_match_small_decode(core, seed):
+    """The literal path's models, whose freqs are at least 1: char_search
+    (256 entries, 8 a lane) and lane_search (32, one a lane) equal
+    small_decode."""
+    rng = np.random.default_rng(300 + seed)
+    f = rng.integers(1, 1 + 4 ** (seed + 1), 256).astype(np.int32)
+    out = np.zeros(12, np.int32)
+    for value in range(int(f.sum()) + 3):
+        core.x3h_small_search(f.ctypes.data, value, out.ctypes.data)
+        assert out[:3].tolist() == out[3:6].tolist(), f"char, value {value}"
+        if value <= int(f[:32].sum()) + 2:
+            assert out[6:9].tolist() == out[9:].tolist(), f"length, {value}"

@@ -41,28 +41,53 @@ SUBS = ("pass-1 ctx rows (leader's warp)", "leader: mode choice",
 LANES = 32
 
 
-def build_counted():
-    """The encoder library with the phase counters, keyed like the main
-    path's libraries by the sources and flags."""
+def build_counted(kernel="encoder", define="-DX3_PHASES", name="k1phases"):
+    """A kernel's library built once more with ``define`` (the phase
+    counters), keyed like the main path's libraries by the sources and
+    flags; loaded, not yet bound."""
     from x3tpu_torch.vm import driver
 
-    lib = driver.library_path("k1phases")
+    lib = driver.library_path(name)
     if not lib.exists():
         lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
         proc = subprocess.run(
-            [driver._nvcc(), *driver.NVCC_FLAGS, "-DX3_PHASES", "-o",
-             str(tmp), str(driver.CSRC / driver.SOURCES["encoder"])],
+            [driver._nvcc(), *driver.NVCC_FLAGS, define, "-o",
+             str(tmp), str(driver.CSRC / driver.SOURCES[kernel])],
             capture_output=True, text=True)
         for line in (proc.stdout + proc.stderr).splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"ptxas (counted): {line.strip()}", flush=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc -DX3_PHASES failed:\n{proc.stderr}")
+            raise RuntimeError(f"nvcc {define} failed:\n{proc.stderr}")
         os.replace(tmp, lib)
-    out = ctypes.CDLL(str(lib))
-    driver._bind_encoder(out, phases=True)
-    return out
+    return ctypes.CDLL(str(lib))
+
+
+def median_ms(fn, runs=3):
+    """Median CUDA-event time of ``runs`` calls of ``fn``."""
+    import torch
+
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def print_card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    print(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}",
+          flush=True)
 
 
 def split_of(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
@@ -74,6 +99,7 @@ def split_of(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
     from x3tpu_torch.vm import driver
 
     counted = build_counted()
+    driver._bind_encoder(counted, phases=True)
     data = data_path.read_bytes()
     lanes = len(data) // BLOCK
     params, caps = X3Params(), runtime.caps_for_block(BLOCK)
@@ -95,19 +121,6 @@ def split_of(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
     for what, a, b in zip(("words", "byte_lens", "counts"), got, ref):
         if not torch.equal(a, b):
             raise AssertionError(f"the counted kernel's {what} differ")
-
-    def median_ms(fn):
-        runs = []
-        for _ in range(3):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            runs.append(a.elapsed_time(b))
-        return statistics.median(runs)
 
     plain_ms, counted_ms = median_ms(plain_call), median_ms(counted_call)
     arr = ph.cpu().numpy()
@@ -156,11 +169,7 @@ def main() -> int:
         return 0
     import torch
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True)
-    print(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}",
-          flush=True)
+    print_card()
     if not torch.cuda.is_available():
         print("k1_phases: torch.cuda.is_available() is False",
               file=sys.stderr)

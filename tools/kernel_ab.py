@@ -10,8 +10,9 @@ trees run in the order given and then in reverse (old, new, new, old for
 two trees), each in a process of its own that imports that tree's
 ``x3tpu_torch``: K1 and K2 at 32 and at 128 lanes of 16 KiB of
 ``chip_smoke.corpus``, median of 5 wrapper calls timed with CUDA events,
-and a hash of K1's words and lengths (equal across trees whose streams
-are).  One JSON line per run.
+a hash of K1's words and lengths and one of K2's bytes, lengths, counts,
+sizes and flags (equal across trees whose outputs are).  One JSON line
+per run; a run that takes more than RUN_TIMEOUT seconds fails.
 """
 
 import hashlib
@@ -22,6 +23,7 @@ import subprocess
 import sys
 
 LANES, BLOCK = (32, 128), 16 * 1024
+RUN_TIMEOUT = 300
 
 
 def time_tree(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
@@ -68,6 +70,11 @@ def time_tree(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
         dec = driver.decode_blocks_cuda(words, lens, caps)
         if int(dec[1].sum()) != int(tlen.sum()):
             raise AssertionError(f"{tree}: K2 did not decode the wave")
+        flags = sum(getattr(dec[4], f).to(torch.int64) << i
+                    for i, f in enumerate(dec[4]._fields))
+        out[f"K2_sha_{lanes}"] = hashlib.sha256(b"".join(
+            t.cpu().numpy().tobytes()
+            for t in (dec[0], dec[1], dec[2], dec[3], flags))).hexdigest()[:16]
         out[f"K2_ms_{lanes}"], out[f"K2_runs_{lanes}"] = median_ms(
             lambda: driver.decode_blocks_cuda(words, lens, caps))
     return out
@@ -93,7 +100,7 @@ def main() -> int:
     order = trees + trees[::-1]
     for tree in order:
         subprocess.run([sys.executable, __file__, "--one", tree,
-                        str(data_path)], check=True)
+                        str(data_path)], check=True, timeout=RUN_TIMEOUT)
     return 0
 
 

@@ -250,13 +250,13 @@ struct Found {
 
 struct Stats { int low, span, total; };
 
-// Scalar state of one lane.  Shared memory on the device.
+// Scalar state of one lane (K1).  Shared memory on the device.  The
+// first nine fields belonged to an earlier decoder and are unused; they
+// keep K1's shared-memory layout the one its times were measured with
+// (removing them measured about 1 % slower, PERF.md §6).
 struct Lane {
-  uint32_t low, high;  // AC interval (decoder)
-  uint32_t buf;        // AC decode buffer (decoder)
-  uint32_t acc;        // bit source: current word (decoder)
-  int used, widx, nwords;  // bit source: bits used of acc, next word, words
-  int opos, done;      // output bytes written, lane finished (decoder)
+  uint32_t low, high, buf, acc;
+  int used, widx, nwords, opos, done;
   int flags;           // OF_* bits
   int p, tlen, prev_c1, c1, pair_n, dn;
   int hub_n[2], promo_n[2];
@@ -275,12 +275,13 @@ struct CodeQueue {
   int head, tail, done, flags;
 };
 
-// Per-event values handed from the leader or the whole CTA to all threads.
+// Per-event values handed from the leader or the whole CTA to all threads
+// (K1).  t32, esym, flen and evbits are unused, as in Lane.
 struct Shared {
-  alignas(16) uint8_t t32[MML];  // decoder: the decoded fragment, zero-padded
+  alignas(16) uint8_t t32[MML];
   int op, op_n, op_r, op_tag;  // dictionary rank update for this event
-  int esym, flen;      // decoder: the event and an E_NEW fragment's length
-  float evbits;        // decoder: the event symbol's size estimate
+  int esym, flen;
+  float evbits;
   // block reductions and scans: two buffers of two values a warp
   unsigned long long red[2][2 * NW_MAX];
   // encoder, pass 1: per warp, the scan's positions repeating the first
@@ -303,7 +304,6 @@ enum { OP_NONE = 0, OP_MTF = 1, OP_INSERT = 2 };
 
 struct OpOr { X3_HD uint64_t operator()(uint64_t a, uint64_t b) const { return a | b; } };
 struct OpMax { X3_HD uint64_t operator()(uint64_t a, uint64_t b) const { return a > b ? a : b; } };
-struct OpMin { X3_HD uint64_t operator()(uint64_t a, uint64_t b) const { return a < b ? a : b; } };
 struct OpSum { X3_HD uint64_t operator()(uint64_t a, uint64_t b) const { return a + b; } };
 
 // The host policy: one thread, one warp of one lane, does everything.
@@ -1008,20 +1008,8 @@ X3_HD Found make_found(const FamP& F, const View& v, const Row& r,
   return f;
 }
 
-// Locate tag in the context (ctx_query_tag_index, context.c:31-40): the
-// whole CTA.
-template <class P>
-X3_HD Found find(const P& par, const FamP& F, const View& v, int hub_n,
-                 int tag) {
-  const Row r = row_of(F, v, hub_n);
-  const int32_t* tags = tags_of(F, v) + r.at;
-  uint64_t first = 0xFFFFFFFFu;
-  for (int i = par.tid(); i < r.n; i += par.nthr())
-    if (tags[i] == tag && (uint64_t)i < first) first = i;
-  return make_found(F, v, r, (uint32_t)par.reduce(first, OpMin()));
-}
-
-// The same on one warp; every lane gets the result.
+// Locate tag in the context (ctx_query_tag_index, context.c:31-40) on one
+// warp; every lane gets the result.
 template <class P>
 X3_HD Found find_warp(const P& par, const FamP& F, const View& v, int hub_n,
                       int tag) {
@@ -1036,32 +1024,9 @@ X3_HD Found find_warp(const P& par, const FamP& F, const View& v, int hub_n,
   return make_found(F, v, r, par.wminu(first));
 }
 
-// acc = total << 32 | low; span is read unmasked at min(pos, cap-1).
-X3_HD Stats make_stats(uint64_t acc, const int32_t* fr, int pos, int cap) {
-  Stats s;
-  s.low = (int)(acc & 0xFFFFFFFFu);
-  s.total = (int)(acc >> 32);
-  s.span = fr[imin(pos, cap - 1)];
-  return s;
-}
-
-// (low_f, span, total) of the item at pos in the context's throwaway model
-// (context.c:95-133): the whole CTA.
-template <class P>
-X3_HD Stats ctx_stats(const P& par, const FamP& F, const View& v, int hub_n,
-                      int pos) {
-  const Row r = row_of(F, v, hub_n);
-  const int32_t* fr = freqs_of(F, v) + r.at;
-  uint64_t acc = 0;
-  for (int i = par.tid(); i < r.n; i += par.nthr()) {
-    const uint64_t f = (uint32_t)fr[i];
-    acc += (f << 32) | (i < pos ? f : 0u);
-  }
-  return make_stats(par.reduce(acc, OpSum()), fr, pos, r.cap);
-}
-
-// find_warp and the found item's ctx_stats on one warp: the tags and the
-// freqs are read in one pass, the low sum in a second (from the cache).
+// find_warp and the found item's stats (low_f, span, total) in the
+// context's throwaway model (context.c:95-133) on one warp: the tags and
+// the freqs are read in one pass, the low sum in a second (from the cache).
 template <class P>
 X3_HD void find_stats_warp(const P& par, const FamP& F, const View& v,
                            int hub_n, int tag, Found& f, Stats& s) {
@@ -1118,17 +1083,6 @@ X3_HD void prefetch_row(const P& par, const FamP& F, const View& v,
 #endif
 }
 
-// (low_f, span, total) of symbol sym of a model of width m (adaptive.py).
-template <class P>
-X3_HD Stats model_stats(const P& par, const int32_t* freqs, int m, int sym) {
-  uint64_t acc = 0;
-  for (int i = par.tid(); i < m; i += par.nthr()) {
-    const uint64_t f = (uint32_t)freqs[i];
-    acc += (f << 32) | (i < sym ? f : 0u);
-  }
-  return make_stats(par.reduce(acc, OpSum()), freqs, sym, m);
-}
-
 // Leader-only serial model stats for the small models in Lane.
 X3_HD Stats small_stats(const int* freqs, int m, int sym) {
   Stats s = {0, freqs[imin(sym, m - 1)], 0};
@@ -1148,14 +1102,14 @@ X3_HD Stats small_stats(const int* freqs, int m, int sym) {
 
 // span: the found item's freq when the caller read it (its stats' span),
 // else -1.  Counts in use come from the view, so nothing here is read
-// back from a table but that freq when span is -1.  Returns whether the
-// row holds the tag afterwards (found, or appended: a write that fits).
-X3_HD bool ctx_update(const FamP& F, Lane& R, int fam, int ofbit,
-                      const View& v, int tag, const Found& f, int new_pair_id,
-                      int span) {
+// back from a table but that freq when span is -1.  hub_n, promo_n and
+// flags are the family's counts and the lane's flags, wherever their
+// owner keeps them.  Returns whether the row holds the tag afterwards
+// (found, or appended: a write that fits).
+X3_HD bool ctx_update(const FamP& F, int& hub_n, int& promo_n, int& flags,
+                      int ofbit, const View& v, int tag, const Found& f,
+                      int new_pair_id, int span) {
   const bool app = !f.found, inc = f.found;
-  int& hub_n = R.hub_n[fam];
-  int& promo_n = R.promo_n[fam];
   auto bump = [span](int32_t* freq) { *freq = (span >= 0 ? span : *freq) + 1; };
 
   const bool hub_room = hub_n < F.H;
@@ -1212,20 +1166,17 @@ X3_HD bool ctx_update(const FamP& F, Lane& R, int fam, int ofbit,
 
   if ((v.hub && app && !hub_room) || (need_promo && !do_promo) ||
       (bdo && app && !big_room))
-    R.flags |= ofbit;
+    flags |= ofbit;
   return inc || (v.hub ? hub_room : (!big_now || big_room));
 }
 
 // Recency ranks after this event's dictionary op (dict.c:132-146): MTF
 // bumps the entries more recent than the hit one and moves it to rank 0; an
-// insert bumps all older entries (the new one, at op_n, has rank 0).  The
-// ranks stay a permutation of the live entries, so tag_of (rank -> tag,
-// the decoder's; nullptr for the encoder) changes exactly where a rank
-// does.  Only changed entries are stored: after an MTF that is the few
-// more recent than the hit one.
+// insert bumps all older entries (the new one, at op_n, has rank 0).  Only
+// changed entries are stored: after an MTF that is the few more recent
+// than the hit one.
 template <class P>
-X3_HD void update_ranks(const P& par, const Shared& sh, int32_t* rank_of,
-                        int32_t* tag_of) {
+X3_HD void update_ranks(const P& par, const Shared& sh, int32_t* rank_of) {
   if (sh.op == OP_NONE) return;
   const bool mtf = sh.op == OP_MTF;
   for (int e = par.tid(); e < sh.op_n; e += par.nthr()) {
@@ -1234,12 +1185,8 @@ X3_HD void update_ranks(const P& par, const Shared& sh, int32_t* rank_of,
     if (!mtf) rk += 1;
     else if (e == sh.op_tag) rk = 0;
     else if (rk < sh.op_r) rk += 1;
-    if (rk != old) {
-      rank_of[e] = rk;
-      if (tag_of) tag_of[rk] = e;
-    }
+    if (rk != old) rank_of[e] = rk;
   }
-  if (!mtf && tag_of && par.leader()) tag_of[0] = sh.op_n;
 }
 
 // ---------------------------------------------------------------------------
@@ -1400,7 +1347,7 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
     // (1) pass 1: the previous event's recency ranks (dict.c:132-146), the
     // dictionary probe at p (x3.c:381), the forward-window scan (x3.c:383)
     // and the single warps' jobs; one barrier
-    update_ranks(par, sh, pl.rank_of, nullptr);
+    update_ranks(par, sh, pl.rank_of);
     X3_PHASE(PH_RANKS);
     X3_CLOCK(s0);
     if (par.warp() == w_ctx0) {
@@ -1410,9 +1357,11 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
           // the previous hit's contexts and pair registration
           // (x3.c:195-222), put off from its chain to here, beside the
           // CTA's probe and scan
-          ctx_update(pl.f0, R, 0, OF_CTX0, sh.v0, pend, sh.f0, 0, sh.s0.span);
-          const bool held = ctx_update(pl.f1, R, 1, OF_CTX1, sh.v1, pend,
-                                       sh.f1, R.pair_n, sh.s1.span);
+          ctx_update(pl.f0, R.hub_n[0], R.promo_n[0], R.flags, OF_CTX0,
+                     sh.v0, pend, sh.f0, 0, sh.s0.span);
+          const bool held =
+              ctx_update(pl.f1, R.hub_n[1], R.promo_n[1], R.flags, OF_CTX1,
+                         sh.v1, pend, sh.f1, R.pair_n, sh.s1.span);
           // the pair (old c1, pend) is what the search below would find
           // in ctx1's row of the old c1: the item it found, or the one it
           // added with the next pair id, if the row kept it
@@ -1628,9 +1577,10 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
   // EOF and flush (x3.c:432-433)
   if (par.leader()) {
     if (pend >= 0) {  // the last hit's context updates, for their flags
-      ctx_update(pl.f0, R, 0, OF_CTX0, sh.v0, pend, sh.f0, 0, sh.s0.span);
-      ctx_update(pl.f1, R, 1, OF_CTX1, sh.v1, pend, sh.f1, R.pair_n,
-                 sh.s1.span);
+      ctx_update(pl.f0, R.hub_n[0], R.promo_n[0], R.flags, OF_CTX0, sh.v0,
+                 pend, sh.f0, 0, sh.s0.span);
+      ctx_update(pl.f1, R.hub_n[1], R.promo_n[1], R.flags, OF_CTX1, sh.v1,
+                 pend, sh.f1, R.pair_n, sh.s1.span);
       if (!sh.f1.found && R.pair_n >= L.f0.S) R.flags |= OF_PAIRS;
     }
     const Stats es = small_stats(R.ev, E_LAST, E_EOF);

@@ -8,7 +8,91 @@
 
 #include "x3_dec_core.cuh"
 
+namespace {
+
+// The symbol search of x3tpu's decoder over w freqs, serially: a model,
+// whose symbols count when their freq is nonzero (by_freq), or a context
+// row's w live items, which all count (ctx_decode_pos).  The reference
+// for the kernel's warp-wide searches.
+x3::Sym decode_search(const int32_t* f, int w, bool by_freq, uint32_t value) {
+  uint64_t c = 0, cnt = 0;
+  for (int i = 0; i < w; ++i) {
+    const uint32_t fi = (uint32_t)f[i];
+    if ((!by_freq || fi > 0) && c <= value) ++cnt;
+    c += fi;
+  }
+  x3::Sym r;
+  r.sym = x3::imax((int)cnt - 1, 0);
+  uint64_t low = 0;
+  for (int i = 0; i < r.sym; ++i) low += (uint32_t)f[i];
+  r.low = (int)low;
+  r.span = r.sym < w ? f[r.sym] : 0;
+  return r;
+}
+
+void put(const x3::Sym& s, int tag, int32_t* out) {
+  out[0] = s.sym;
+  out[1] = s.low;
+  out[2] = s.span;
+  out[3] = tag;
+}
+
+}  // namespace
+
 extern "C" {
+
+// The index model's search (ix_search, over the inclusive cumulative sum
+// of ix's first ixn entries, tags tag_of) at value: out[0..3] sym, low,
+// span, tag; out[4..7] the same from decode_search(ix, D, by_freq) and
+// tag_of[sym].
+void x3h_ix_search(const int32_t* ix, const int32_t* tag_of, int D, int ixn,
+                   uint32_t value, int32_t* out) {
+  std::vector<int32_t> cum(D, 0);
+  for (int i = 0, s = 0; i < ixn; ++i) cum[i] = s += ix[i];
+  int tag;
+  const x3::Sym k = x3::ix_search(cum.data(), tag_of, D, ixn, value, tag);
+  put(k, tag, out);
+  const x3::Sym r = decode_search(ix, D, true, value);
+  put(r, tag_of[x3::imin(r.sym, D - 1)], out + 4);
+}
+
+// A context row's search (chunk_bases, then wsearch) over its n items at
+// value: out[0..3] sym, low, span, tag, out[4] the row's total; out[5..8]
+// the same from decode_search(f, n) and tags[sym], out[9] the plain sum.
+void x3h_row_search(const int32_t* f, const int32_t* tags, int n,
+                    uint32_t value, int32_t* out) {
+  uint32_t exc[32];
+  int K, tag;
+  const uint32_t tot = x3::chunk_bases(f, n, K, exc);
+  const x3::Sym k = x3::wsearch(f, tags, n, K, exc, value, tag);
+  put(k, tag, out);
+  out[4] = (int32_t)tot;
+  const x3::Sym r = decode_search(f, n, false, value);
+  put(r, tags[r.sym], out + 5);
+  int32_t sum = 0;
+  for (int i = 0; i < n; ++i) sum += f[i];
+  out[9] = sum;
+}
+
+// The literal path's searches at value: the char model (256 freqs, 8 a
+// lane: char_search) in out[0..2] and small_decode's in out[3..5]; the
+// length model (the first 32 freqs, one a lane: lane_search) in out[6..8]
+// and small_decode's in out[9..11].
+void x3h_small_search(const int32_t* f, uint32_t value, int32_t* out) {
+  int ch[32][8], ms[32];
+  for (int i = 0; i < 256; ++i) ch[i / 8][i % 8] = f[i];
+  for (int i = 0; i < 32; ++i) ms[i] = f[i];
+  const x3::Sym a = x3::char_search(ch, value);
+  const x3::Sym b = x3::small_decode(f, 256, value);
+  const x3::Sym c = x3::lane_search(ms, value);
+  const x3::Sym d = x3::small_decode(f, 32, value);
+  const x3::Sym all[4] = {a, b, c, d};
+  for (int k = 0; k < 4; ++k) {
+    out[3 * k] = all[k].sym;
+    out[3 * k + 1] = all[k].low;
+    out[3 * k + 2] = all[k].span;
+  }
+}
 
 // Byte offsets of the planes in shared memory (x3_core.cuh PL_* order, -1
 // for a plane in the scratch), then their total: out [PL_COUNT + 1].
@@ -92,9 +176,9 @@ int x3h_decode(const uint32_t* words, const int32_t* byte_lens, int lanes,
     io.counts = counts + lane * x3::E_LAST;
     io.sizes = sizes + lane * x3::E_LAST;
     io.flags = flags + lane;
-    x3::Lane R;
-    x3::Shared sh;
-    x3::decode_lane(x3::ParHost(), lay, io, R, sh);
+    io.phases = nullptr;
+    x3::DecShared sh;
+    x3::decode_lane(x3::ParHost(), lay, io, sh);
   }
   return 0;
 }

@@ -159,28 +159,47 @@ def _bind_encoder(lib: ctypes.CDLL, phases: bool = False) -> None:
     lib.x3_encoder_info.argtypes = [p]
 
 
+def _bind_decoder(lib: ctypes.CDLL, phases: bool = False) -> None:
+    """argtypes of K2's entry points (``phases``: the library built with
+    -DX3_DEC_PHASES, whose x3_decode takes one more pointer)."""
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.x3_decode.restype = i
+    lib.x3_decode.argtypes = [p, p] + [i] * 9 + [p] * (8 if phases else 7)
+    lib.x3_decoder_info.restype = i
+    lib.x3_decoder_info.argtypes = [p]
+
+
 def _load() -> Dict[str, ctypes.CDLL]:
     global _libs
     with _lock:
         if _libs is None:
             libs = {k: ctypes.CDLL(str(path)) for k, path in build().items()}
-            i, p = ctypes.c_int, ctypes.c_void_p
             _bind_encoder(libs["encoder"])
-            dec = libs["decoder"]
-            dec.x3_decode.restype = i
-            dec.x3_decode.argtypes = [p, p] + [i] * 9 + [p] * 7
+            _bind_decoder(libs["decoder"])
             _libs = libs
         return _libs
+
+
+def _info(kernel: str) -> Dict[str, int]:
+    out = (ctypes.c_int * 3)()
+    lib = _load()[kernel]
+    fn = lib.x3_encoder_info if kernel == "encoder" else lib.x3_decoder_info
+    rc = fn(out)
+    if rc != 0:
+        raise RuntimeError(f"x3_{kernel}_info failed: cudaError {rc}")
+    return {"registers": out[0], "static_smem": out[1], "local_bytes": out[2]}
 
 
 def encoder_info() -> Dict[str, int]:
     """K1 as the loaded module has it: registers a thread, static shared
     memory, local (spill) bytes a thread."""
-    out = (ctypes.c_int * 3)()
-    rc = _load()["encoder"].x3_encoder_info(out)
-    if rc != 0:
-        raise RuntimeError(f"x3_encoder_info failed: cudaError {rc}")
-    return {"registers": out[0], "static_smem": out[1], "local_bytes": out[2]}
+    return _info("encoder")
+
+
+def decoder_info() -> Dict[str, int]:
+    """K2 as the loaded module has it: registers a thread, static shared
+    memory, local (spill) bytes a thread."""
+    return _info("decoder")
 
 
 def scratch_words(caps: CodecCaps) -> int:
@@ -269,9 +288,19 @@ def decode_blocks_cuda(words: torch.Tensor, byte_lens: torch.Tensor,
                        caps: CodecCaps):
     """Decode L streams with kernel K2: ``words`` i32 [L, IW] (the streams'
     little-endian u32 words, bit for bit) and ``byte_lens`` i32 [L], both
-    on one CUDA device.  A lane still decoding after block_bytes + 1 events
-    raises ValueError (a valid stream emits a byte with every event but
-    EOF); nothing hangs on a corrupt stream."""
+    on one CUDA device.  Every lane's state lives in a zeroed scratch
+    tensor allocated here.  A lane still decoding after block_bytes + 1
+    events raises ValueError (a valid stream emits a byte with every event
+    but EOF); nothing hangs on a corrupt stream."""
+    return _decode_with(words, byte_lens, caps)
+
+
+def _decode_with(words: torch.Tensor, byte_lens: torch.Tensor,
+                 caps: CodecCaps, lib: Optional[ctypes.CDLL] = None,
+                 phases: Optional[torch.Tensor] = None):
+    """:func:`decode_blocks_cuda` through ``lib`` (default: the main
+    path's); ``phases`` (i64 [L, slots]) only with a library built with
+    -DX3_DEC_PHASES (tools/k2_phases.py)."""
     lanes = words.shape[0] if isinstance(words, torch.Tensor) else 0
     iw = words.shape[1] if lanes else 0
     _check("words", words, torch.int32, (lanes, iw))
@@ -280,7 +309,7 @@ def decode_blocks_cuda(words: torch.Tensor, byte_lens: torch.Tensor,
         raise ValueError("words and byte_lens must be on the same device")
     if lanes and iw < 1:
         raise ValueError("words needs at least one column")
-    lib = _load()["decoder"]
+    lib = lib or _load()["decoder"]
     dev = words.device
     with torch.cuda.device(dev):
         scratch = torch.zeros((lanes, scratch_words(caps)), dtype=torch.int32,
@@ -292,13 +321,15 @@ def decode_blocks_cuda(words: torch.Tensor, byte_lens: torch.Tensor,
         sizes = torch.empty((lanes, 5), dtype=torch.float32, device=dev)
         flags = torch.empty((lanes,), dtype=torch.int32, device=dev)
         if lanes:
+            extra = () if phases is None else (phases.data_ptr(),)
             rc = lib.x3_decode(
                 words.data_ptr(), byte_lens.data_ptr(), lanes, iw,
                 caps.block_bytes, caps.dict_cap, caps.pair_cap,
                 caps.ctx_items_cap, caps.ctx0_items_cap, caps.ctx_small_cap,
                 caps.ctx_promo_rows, scratch.data_ptr(), out.data_ptr(),
                 out_lens.data_ptr(), counts.data_ptr(), sizes.data_ptr(),
-                flags.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                flags.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+                *extra)
             if rc != 0:
                 raise RuntimeError(f"x3_decode launch failed: cudaError {rc}")
             LAUNCHES["decoder"] += 1
