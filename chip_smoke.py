@@ -18,24 +18,41 @@ exit at the first failure:
 4. corrupt streams (random bytes, a golden stream cut in half, zeros):
    K2 and the plain decoder end in the same error, and a decode after
    them still works;
-5. the main path at 32 and 128 lanes of 16 KiB:
-   ``x3tpu_torch.compress(..., device="cuda")`` then
+5. seeded kernels: 256 dictionary seeds trained by the port's trainer on
+   a strided sample of the corpus; K1 against the plain encoder at 8
+   lanes of 4 KiB with every lane seeded, with the default shared-memory
+   plan and at dict_cap 8192 (the strings in global memory), and K2
+   against the plain decoder on those streams;
+6. the raw path: one 16 KiB block compressed to a raw stream and
+   decompressed on the card, and the golden streams over 2 KiB decoded
+   raw, at the capacities a raw decode picks (dict 16384-24576, 8192
+   items a context: about 520 MiB of scratch a lane);
+7. the main path at 32 and 128 lanes of 16 KiB, unseeded and with
+   ``dict_seed=True``: ``x3tpu_torch.compress(..., device="cuda")`` then
    ``x3tpu_torch.decompress(..., device="cuda")``, each run with the
    launch counts set to 0 just before it and read just after: the data
    comes back, and the decoder's event counts equal the encoder's; then
-   K2 decodes each main-path wave three more times, with every output
-   equal to the first (K2's warps hand work to each other through shared
-   memory, so a race would show as a difference);
-6. times: compress and decompress, each kernel alone, and both plain
-   versions against the kernels at 32 lanes of 4 KiB.
+   each main-path wave is encoded and decoded three more times, with
+   every output equal to the first (K1's coder warp and K2's warps hand
+   work to each other through shared memory, so a race would show as a
+   difference);
+8. the command line: ``python3 -m x3tpu_torch`` compresses and
+   decompresses a 512 KiB file in 16 KiB blocks with ``--dict-seed`` and
+   a 16 KiB file as one raw stream, each to the same bytes;
+9. times: compress and decompress (unseeded and seeded), the seed
+   trainer on the host, each kernel alone, and both plain versions
+   against the kernels at 32 lanes of 4 KiB.
 
 The last line is one JSON object, {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launches, errors, times and bounds.
 """
 
 import dataclasses
+import hashlib
 import json
+import os
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -44,6 +61,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 BLOCK = 16 * 1024
 PLAIN_BLOCK = 4 * 1024              # the plain versions' depth
+SEED_LANES = 8                      # lanes of the seeded kernels' check
 SIZE_RTOL, SIZE_ATOL = 1e-5, 1e-3   # f32 size estimates (tests/test_vm.py)
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM peak device-memory rate
 
@@ -93,7 +111,7 @@ def main() -> int:
     import numpy as np
 
     import x3tpu_torch
-    from x3tpu_torch import codec
+    from x3tpu_torch import codec, host
     from x3tpu_torch.config import CodecCaps, X3Params
     from x3tpu_torch.parallel import blocks as blk
     from x3tpu_torch.parallel import runtime
@@ -103,6 +121,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = driver.build()
+    host._load()   # the seed trainer (g++)
     phase("build", t0)
     for kernel, lib in libs.items():
         print(f"built {kernel}: {lib.relative_to(ROOT)}", flush=True)
@@ -118,6 +137,21 @@ def main() -> int:
         out = fn()
         torch.cuda.synchronize()
         return out, time.perf_counter() - t
+
+    def kernel_ms(fn, runs=3):
+        """Median device time of a wrapper call (CUDA events; scratch and
+        output allocation included)."""
+        times = []
+        for _ in range(runs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times), times
 
     def same(label, kernel, ours, ref, names):
         """Kernel and plain results must agree: the integer outputs and the
@@ -135,15 +169,17 @@ def main() -> int:
                 raise AssertionError(f"{label}: overflow flag {f} differs")
         return err
 
-    def against_plain(label, blocks, params, caps):
-        """K1 and the plain encoder on the same CUDA tensors.  Returns the
-        kernel's result and both times."""
+    def against_plain(label, blocks, params, caps, seeds=None):
+        """K1 and the plain encoder on the same CUDA tensors (every lane
+        from ``seeds`` where given).  Returns the kernel's result and both
+        times."""
         text, tlen = codec.pack_blocks(blocks, params, caps)
         text, tlen = torch.from_numpy(text).to(dev), torch.from_numpy(tlen).to(dev)
         ours, kernel_s = timed(
-            lambda: driver.encode_blocks_cuda(text, tlen, params, caps))
+            lambda: driver.encode_blocks_cuda(text, tlen, params, caps, seeds))
         ref, plain_s = timed(
-            lambda: codec.encode_blocks_chunked(text, tlen, params, caps))
+            lambda: codec.encode_blocks_chunked(text, tlen, params, caps,
+                                                seeds))
         err = same(label, "encoder", ours, ref,
                    ("words", "byte_lens", "counts"))
         print(f"{label}: {len(blocks)} lanes match the plain encoder "
@@ -166,15 +202,15 @@ def main() -> int:
         return (torch.from_numpy(words.view(np.int32)).to(dev),
                 torch.from_numpy(lens).to(dev))
 
-    def against_plain_dec(label, words, byte_lens, caps):
+    def against_plain_dec(label, words, byte_lens, caps, seeds=None):
         """K2 and the plain decoder on the same CUDA tensors (``words``
-        i32 [L, IW], the streams' u32 words).  Returns the kernel's result
-        and both times."""
+        i32 [L, IW], the streams' u32 words; every lane from ``seeds``
+        where given).  Returns the kernel's result and both times."""
         ours, kernel_s = timed(
-            lambda: driver.decode_blocks_cuda(words, byte_lens, caps))
+            lambda: driver.decode_blocks_cuda(words, byte_lens, caps, seeds))
         ref, plain_s = timed(lambda: codec.decode_blocks_chunked(
             words.to(torch.int64) & 0xFFFFFFFF, byte_lens.to(torch.int64),
-            caps))
+            caps, seeds))
         err = same(label, "decoder", ours, ref, ("out", "out_lens", "counts"))
         print(f"{label}: {words.shape[0]} lanes match the plain decoder "
               f"(kernel {kernel_s:.3f} s, plain {plain_s:.3f} s, "
@@ -315,95 +351,244 @@ def main() -> int:
     print("a decode after the corrupt streams succeeds", flush=True)
     phase("corrupt streams", t0)
 
-    # ---------------------------------------------------------- 5. main path
+    # ---------------------------------------------------- 5. seeded kernels
     t0 = time.perf_counter()
     shapes = (32, 128)
     data = {lanes: corpus(lanes * BLOCK) for lanes in shapes}
+    caps = runtime.caps_for_block(BLOCK)
+    params = X3Params()
+
+    def train(blob):
+        """compress(dict_seed=True)'s seeds for ``blob``: a strided sample
+        (the head of each block), at most dict_cap / 2 seeds."""
+        parts = blk.split_blocks(blob, BLOCK)
+        per = 64 * 1024 // len(parts)
+        strs, lens = host.train_seeds(b"".join(p[:per] for p in parts),
+                                      params, min(256, caps.dict_cap // 2))
+        seed_bytes = [strs[i, : lens[i]].tobytes() for i in range(len(lens))]
+        return runtime.seeds_to_arrays(seed_bytes)
+
+    seeds, train_s = timed(lambda: train(data[32]))
+    k_seeds = len(seeds[1])
+    if k_seeds != 256:
+        raise AssertionError(f"{k_seeds} seeds trained, want 256")
+    print(f"seeds: {k_seeds} trained on the host in {train_s:.3f} s",
+          flush=True)
+    seed_blocks = [p[:PLAIN_BLOCK] for p in
+                   blk.split_blocks(data[32], BLOCK)[:SEED_LANES]]
+    seeded_out, _, _ = against_plain(
+        f"seeded K1 {SEED_LANES} x 4 KiB", seed_blocks, params, caps, seeds)
+    wide_caps = dataclasses.replace(caps, dict_cap=8192)
+    if "strs" in driver.smem_plan(params, wide_caps).offsets:
+        raise AssertionError("dict_cap 8192: the plan holds the strings")
+    wide_out, _, _ = against_plain(
+        f"seeded K1 {SEED_LANES} x 4 KiB, dictionary in global memory",
+        seed_blocks, params, wide_caps, seeds)
+    for got in (seeded_out, wide_out):
+        if got[4].any_flag().any():
+            raise AssertionError("seeded K1: a lane overflowed")
+    if not torch.equal(seeded_out[0], wide_out[0]):
+        raise AssertionError("seeded K1: the streams depend on dict_cap")
+    words, byte_lens = as_i32(seeded_out[0]), seeded_out[1].to(torch.int32)
+    dec, _, _ = against_plain_dec(f"seeded K2 {SEED_LANES} x 4 KiB", words,
+                                  byte_lens, caps, seeds)
+    for i, b in enumerate(seed_blocks):
+        if dec[0][i, : dec[1][i]].cpu().numpy().tobytes() != b:
+            raise AssertionError(f"seeded K2: block {i} does not round trip")
+    if not torch.equal(dec[2], seeded_out[2]):
+        raise AssertionError("seeded K2: event counts differ from K1's")
+    unseeded = driver.encode_blocks_cuda(
+        *(torch.from_numpy(a).to(dev)
+          for a in codec.pack_blocks(seed_blocks, params, caps)),
+        params, caps)
+    print(f"seeded kernels: {SEED_LANES} x 4 KiB in "
+          f"{int(seeded_out[1].sum())} stream bytes seeded, "
+          f"{int(unseeded[1].sum())} unseeded; hits by index rank "
+          f"{int(seeded_out[2][:, 2].sum())} seeded, "
+          f"{int(unseeded[2][:, 2].sum())} unseeded", flush=True)
+    phase("seeded kernels vs plain", t0)
+
+    # ------------------------------------------------------- 6. raw path
+    t0 = time.perf_counter()
+
+    def raw_caps(stream):
+        """The capacities decompress picks for a raw stream."""
+        return runtime.caps_for_block(max(64 * len(stream), 1 << 16))
+
+    one = data[32][:BLOCK]
+    driver.LAUNCHES["encoder"] = driver.LAUNCHES["decoder"] = 0
+    raw = x3tpu_torch.compress(one, device="cuda")
+    if blk.is_container(raw) or driver.LAUNCHES["encoder"] != 1:
+        raise AssertionError("raw path: compress of one block is not one "
+                             "raw stream from K1")
+    raw_cases = [("one 16 KiB block", raw, one)] + [
+        (f"{n}.t4_w1.x3", (golden / f"{n}.t4_w1.x3").read_bytes(),
+         (golden / f"{n}.bin").read_bytes())
+        for n in ("c_source", "binary_mixed", "random_2k")]
+    for label, stream, want in raw_cases:
+        rc = raw_caps(stream)
+        driver.LAUNCHES["decoder"] = 0
+        back, dec_s = timed(lambda: x3tpu_torch.decompress(stream,
+                                                           device="cuda"))
+        if back != want or driver.LAUNCHES["decoder"] != 1:
+            raise AssertionError(f"raw path {label}: decompress gave "
+                                 f"{len(back)} bytes in "
+                                 f"{driver.LAUNCHES['decoder']} launches")
+        words, byte_lens = pack_streams([stream])
+        wrapper_ms, _ = kernel_ms(
+            lambda: driver.decode_blocks_cuda(words, byte_lens, rc))
+        print(f"raw path {label}: {len(stream)} B stream -> {len(want)} B "
+              f"at dict {rc.dict_cap}, items {rc.ctx_items_cap}, block "
+              f"{rc.block_bytes}; scratch "
+              f"{driver.scratch_words(rc) * 4 / 2**20:.2f} MiB a lane; "
+              f"decompress {dec_s:.4f} s, K2 wrapper {wrapper_ms:.3f} ms",
+              flush=True)
+    phase("raw path", t0)
+
+    # ---------------------------------------------------------- 7. main path
+    t0 = time.perf_counter()
     launches = {"encoder": 0, "decoder": 0}
     results = {}
     for lanes in shapes:
-        enc_stats, dec_stats = [], []
-        driver.LAUNCHES["encoder"] = driver.LAUNCHES["decoder"] = 0
-        blob = x3tpu_torch.compress(data[lanes], block_bytes=BLOCK,
-                                    lanes_per_device=lanes,
-                                    stats_out=enc_stats, device="cuda")
-        n_enc = driver.LAUNCHES["encoder"]
-        driver.LAUNCHES["encoder"] = driver.LAUNCHES["decoder"] = 0
-        back = x3tpu_torch.decompress(blob, lanes_per_device=lanes,
-                                      stats_out=dec_stats, device="cuda")
-        n_dec = driver.LAUNCHES["decoder"]
-        if n_enc < 1 or n_dec < 1:
-            raise AssertionError(f"{lanes} lanes: launches {n_enc} (K1), "
-                                 f"{n_dec} (K2) on the main path")
-        launches["encoder"] += n_enc
-        launches["decoder"] += n_dec
-        results[lanes] = (blob, back, enc_stats[0], dec_stats[0])
+        for seeded in (False, True):
+            enc_stats, dec_stats = [], []
+            driver.LAUNCHES["encoder"] = driver.LAUNCHES["decoder"] = 0
+            blob = x3tpu_torch.compress(data[lanes], block_bytes=BLOCK,
+                                        lanes_per_device=lanes,
+                                        dict_seed=seeded,
+                                        stats_out=enc_stats, device="cuda")
+            n_enc = driver.LAUNCHES["encoder"]
+            driver.LAUNCHES["encoder"] = driver.LAUNCHES["decoder"] = 0
+            back = x3tpu_torch.decompress(blob, lanes_per_device=lanes,
+                                          stats_out=dec_stats, device="cuda")
+            n_dec = driver.LAUNCHES["decoder"]
+            if n_enc < 1 or n_dec < 1:
+                raise AssertionError(f"{lanes} lanes, seeded {seeded}: "
+                                     f"launches {n_enc} (K1), {n_dec} (K2) "
+                                     f"on the main path")
+            launches["encoder"] += n_enc
+            launches["decoder"] += n_dec
+            results[lanes, seeded] = (blob, back, enc_stats[0], dec_stats[0])
     phase("main path", t0)
 
     t0 = time.perf_counter()
+
+    def digest(*tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    ratios = {}
     for lanes in shapes:
-        blob, back, enc_stats, dec_stats = results[lanes]
-        if back != data[lanes]:
-            raise AssertionError(f"{lanes} lanes: decompress(compress(data)) "
-                                 f"is not the data")
-        if not np.array_equal(enc_stats.events, dec_stats.events):
-            raise AssertionError(f"{lanes} lanes: decode counts "
-                                 f"{dec_stats.events} != encode counts "
-                                 f"{enc_stats.events}")
-        payloads, orig_lens, _ = blk.unpack_container(blob)
-        if len(payloads) != lanes or blob != blk.pack_container(
-                payloads, orig_lens, BLOCK):
-            raise AssertionError(f"{lanes} lanes: container framing differs")
-        print(f"main path {lanes} x 16 KiB: {lanes} blocks round trip, "
-              f"event counts {enc_stats.events.tolist()} both ways; ratio "
-              f"{len(blob) / len(data[lanes]):.4f}", flush=True)
-        words, byte_lens = pack_streams(payloads)
-        runs = [driver.decode_blocks_cuda(words, byte_lens,
-                                          runtime.caps_for_block(BLOCK))
-                for _ in range(3)]
-        for i, run in enumerate(runs[1:], 2):
-            same(f"main path {lanes} x 16 KiB, decode {i}", "decoder", run,
-                 runs[0], ("out", "out_lens", "counts"))
-            if not torch.equal(run[3], runs[0][3]):
-                raise AssertionError(f"{lanes} lanes: decode {i}'s sizes "
-                                     f"differ from the first's")
-        print(f"main path {lanes} x 16 KiB: three decodes identical",
-              flush=True)
+        for seeded in (False, True):
+            blob, back, enc_stats, dec_stats = results[lanes, seeded]
+            label = f"main path {lanes} x 16 KiB{', seeded' if seeded else ''}"
+            if back != data[lanes]:
+                raise AssertionError(f"{label}: decompress(compress(data)) "
+                                     f"is not the data")
+            if not np.array_equal(enc_stats.events, dec_stats.events):
+                raise AssertionError(f"{label}: decode counts "
+                                     f"{dec_stats.events} != encode counts "
+                                     f"{enc_stats.events}")
+            payloads, orig_lens, _, seed_bytes = blk.unpack_container(blob)
+            if (len(payloads) != lanes or bool(seed_bytes) != seeded
+                    or blob != blk.pack_container(payloads, orig_lens, BLOCK,
+                                                  seeds=seed_bytes)):
+                raise AssertionError(f"{label}: container framing differs")
+            wave_seeds = (runtime.seeds_to_arrays(seed_bytes) if seeded
+                          else None)
+            ratios[lanes, seeded] = len(blob) / len(data[lanes])
+            print(f"{label}: {lanes} blocks round trip, event counts "
+                  f"{enc_stats.events.tolist()} both ways; ratio "
+                  f"{ratios[lanes, seeded]:.4f}"
+                  + (f" (unseeded {ratios[lanes, False]:.4f}, "
+                     f"{len(seed_bytes)} seeds)" if seeded else ""),
+                  flush=True)
+            # the race checks: each wave three more times through each
+            # kernel, every output equal to the first
+            text, tlen = codec.pack_blocks(
+                blk.split_blocks(data[lanes], BLOCK), params, caps)
+            text, tlen = (torch.from_numpy(text).to(dev),
+                          torch.from_numpy(tlen).to(dev))
+            encs = [driver.encode_blocks_cuda(text, tlen, params, caps,
+                                              wave_seeds) for _ in range(3)]
+            hashes = {digest(e[0], e[1], e[2], e[3]) for e in encs}
+            if len(hashes) != 1 or codec.streams_from_words(
+                    encs[0][0], encs[0][1], lanes) != payloads:
+                raise AssertionError(f"{label}: three encodes differ "
+                                     f"({sorted(hashes)})")
+            words, byte_lens = pack_streams(payloads)
+            runs = [driver.decode_blocks_cuda(words, byte_lens, caps,
+                                              wave_seeds) for _ in range(3)]
+            for i, run in enumerate(runs[1:], 2):
+                same(f"{label}, decode {i}", "decoder", run, runs[0],
+                     ("out", "out_lens", "counts"))
+                if not torch.equal(run[3], runs[0][3]):
+                    raise AssertionError(f"{label}: decode {i}'s sizes "
+                                         f"differ from the first's")
+            print(f"{label}: three encodes identical (hash "
+                  f"{hashes.pop()}), three decodes identical", flush=True)
     phase("main path checks", t0)
 
-    # ---------------------------------------------------------------- 6. times
+    # ---------------------------------------------------- 8. command line
     t0 = time.perf_counter()
-    caps = runtime.caps_for_block(BLOCK)
-    params = X3Params()
+    cli_dir = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    cli_dir.mkdir(parents=True)
+    cli_cases = {"corpus.bin": (data[32], ["--block-size", "16",
+                                           "--dict-seed"]),
+                 "block.bin": (data[32][:BLOCK], [])}
+    for fname, (blob, flags) in cli_cases.items():
+        src = cli_dir / fname
+        src.write_bytes(blob)
+        for argv in (["-z", *flags, str(src)], ["-d", "-f", f"{src}.x3"]):
+            r = subprocess.run([sys.executable, "-m", "x3tpu_torch", *argv],
+                               cwd=ROOT, capture_output=True, text=True,
+                               timeout=300)
+            if r.returncode != 0:
+                raise AssertionError(f"cli {argv}: exit {r.returncode}\n"
+                                     f"{r.stderr[-3000:]}")
+            print(f"cli {' '.join(argv[:-1])} {fname}:", flush=True)
+            for line in r.stderr.splitlines():
+                print(f"  {line}", flush=True)
+            if argv[0] == "-z":
+                packed = pathlib.Path(f"{src}.x3").read_bytes()
+                if blk.is_container(packed) != bool(flags):
+                    raise AssertionError(f"cli {fname}: container "
+                                         f"{blk.is_container(packed)}")
+        if src.read_bytes() != blob:
+            raise AssertionError(f"cli {fname}: -d did not give the input "
+                                 f"back")
+        print(f"cli {fname}: {len(blob)} B round trip through "
+              f"{len(packed)} B", flush=True)
+    shutil.rmtree(cli_dir)
+    phase("command line", t0)
+
+    # ---------------------------------------------------------------- 9. times
+    t0 = time.perf_counter()
+    print(smi.stdout.strip(), flush=True)   # the card beside every time
     lane_mib = driver.scratch_words(caps) * 4 / 2**20
     print(f"device state per lane: {lane_mib:.2f} MiB of scratch "
           f"(caps {caps})", flush=True)
 
-    def kernel_ms(fn, runs=3):
-        """Median device time of a wrapper call (CUDA events; scratch and
-        output allocation included)."""
-        times = []
-        for _ in range(runs):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times), times
-
     timing, bounds = {}, {}
     for lanes in shapes:
-        blob = results[lanes][0]
+        blob = results[lanes, False][0]
+        seeded_blob = results[lanes, True][0]
         row = {}
         for what, fn in (
                 ("compress", lambda: x3tpu_torch.compress(
                     data[lanes], block_bytes=BLOCK, lanes_per_device=lanes,
                     device="cuda")),
                 ("decompress", lambda: x3tpu_torch.decompress(
-                    blob, lanes_per_device=lanes, device="cuda"))):
+                    blob, lanes_per_device=lanes, device="cuda")),
+                ("seeded_compress", lambda: x3tpu_torch.compress(
+                    data[lanes], block_bytes=BLOCK, lanes_per_device=lanes,
+                    dict_seed=True, device="cuda")),
+                ("seeded_decompress", lambda: x3tpu_torch.decompress(
+                    seeded_blob, lanes_per_device=lanes, device="cuda")),
+                ("trainer", lambda: train(data[lanes]))):
             runs = [timed(fn)[1] for _ in range(3)]
             row[what] = statistics.median(runs)
             row[what + "_runs"] = runs
@@ -422,6 +607,16 @@ def main() -> int:
         row["K2"], row["K2_runs"] = kernel_ms(
             lambda: driver.decode_blocks_cuda(words, byte_lens, caps))
         row["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        # the same wave seeded: K1 on the same text, K2 on its streams
+        _, _, _, seed_bytes = blk.unpack_container(seeded_blob)
+        wseeds = runtime.seeds_to_arrays(seed_bytes)
+        row["K1_seeded"], row["K1_seeded_runs"] = kernel_ms(
+            lambda: driver.encode_blocks_cuda(text, tlen, params, caps,
+                                              wseeds))
+        swords, sbyte_lens = pack_streams(blk.unpack_container(seeded_blob)[0])
+        row["K2_seeded"], row["K2_seeded_runs"] = kernel_ms(
+            lambda: driver.decode_blocks_cuda(swords, sbyte_lens, caps,
+                                              wseeds))
         # what this run's data needs: each block's bytes and stream once,
         # plus the per-lane lengths, counts, sizes and flags (4+20+20+4 B)
         raw, packed = int(tlen.sum()), int(enc[1].sum())
@@ -448,6 +643,20 @@ def main() -> int:
               f"{row['K2'] * 1e6 / row['events_slowest_lane']:.1f} ns an "
               f"event of the slowest lane ({row['events_slowest_lane']} "
               f"events)", flush=True)
+        print(f"time {lanes} x 16 KiB seeded: compress "
+              f"{row['seeded_compress']:.4f} s "
+              f"({mb / row['seeded_compress']:.3f} MB/s, the trainer's "
+              f"{row['trainer']:.4f} s on the host included), decompress "
+              f"{row['seeded_decompress']:.4f} s "
+              f"({mb / row['seeded_decompress']:.3f} MB/s); K1 "
+              f"{row['K1_seeded']:.3f} ms, K2 {row['K2_seeded']:.3f} ms "
+              f"(runs {[round(r, 3) for r in row['K1_seeded_runs']]} / "
+              f"{[round(r, 3) for r in row['K2_seeded_runs']]}); ratio "
+              f"{ratios[lanes, True]:.4f} (unseeded "
+              f"{ratios[lanes, False]:.4f}); runs "
+              f"{[round(r, 4) for r in row['seeded_compress_runs']]} / "
+              f"{[round(r, 4) for r in row['seeded_decompress_runs']]} / "
+              f"{[round(r, 4) for r in row['trainer_runs']]} s", flush=True)
 
     # the plain versions at 32 lanes of 4 KiB (a slice of each main-path
     # block, caps_for_block(16 KiB)), held against the kernels
@@ -487,6 +696,8 @@ def main() -> int:
             "plain_shape": "32 x 4 KiB",
             "ms_at_plain_shape": k_small_s * 1e3,
             "ms_128_lanes": timing[128][k_ms],
+            "ms_seeded": timing[32][k_ms + "_seeded"],
+            "ms_seeded_128_lanes": timing[128][k_ms + "_seeded"],
             "bound_ms_128_lanes": bounds[128][kernel],
         }
 
@@ -517,10 +728,20 @@ def main() -> int:
         "ns_per_event_128_lanes": timing[128]["K2"] * 1e6
         / timing[128]["events_slowest_lane"],
     })
-    print(json.dumps({"kernels": [k1_entry, k2_entry], "compress_mb_s": {str(k): len(data[k]) / 1e6 / v["compress"]
-                         for k, v in timing.items()},
-       "decompress_mb_s": {str(k): len(data[k]) / 1e6 / v["decompress"]
-                           for k, v in timing.items()}}), flush=True)
+    def mb_s(what):
+        return {str(k): len(data[k]) / 1e6 / v[what]
+                for k, v in timing.items()}
+
+    print(json.dumps({
+        "kernels": [k1_entry, k2_entry],
+        "compress_mb_s": mb_s("compress"),
+        "decompress_mb_s": mb_s("decompress"),
+        "seeded_compress_mb_s": mb_s("seeded_compress"),
+        "seeded_decompress_mb_s": mb_s("seeded_decompress"),
+        "trainer_s": {str(k): v["trainer"] for k, v in timing.items()},
+        "ratio": {f"{k}{' seeded' if sd else ''}": r
+                  for (k, sd), r in ratios.items()},
+    }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

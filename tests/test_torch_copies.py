@@ -41,7 +41,7 @@ def test_container_bytes_match():
     ours = blk.pack_container(PAYLOADS, lens, 4096)
     theirs = jblk.pack_container(PAYLOADS, lens, 4096)
     assert ours == theirs
-    assert blk.unpack_container(theirs) == (PAYLOADS, lens, 4096)
+    assert blk.unpack_container(theirs) == (PAYLOADS, lens, 4096, [])
     assert jblk.unpack_container(ours) == (PAYLOADS, lens, 4096, [], [])
     assert blk.is_container(ours) and not blk.is_container(PAYLOADS[1])
     data = bytes(range(200))
@@ -49,20 +49,37 @@ def test_container_bytes_match():
     assert blk.split_blocks(b"", 64) == jblk.split_blocks(b"", 64)
 
 
-def test_container_errors():
-    good = jblk.pack_container(PAYLOADS, [1, 2, 3, 4], 4096)
-    for bad in (good[:-1], good + b"\0", good[:10]):
-        with pytest.raises(ValueError):
-            jblk.unpack_container(bad)
-        with pytest.raises(ValueError):
-            blk.unpack_container(bad)
-    seeded = jblk.pack_container(PAYLOADS, [1, 2, 3, 4], 4096,
-                                 seeds=[b"ab"])
-    warm = jblk.pack_container(PAYLOADS, [1, 2, 3, 4], 4096, seeds=[b"ab"],
-                               warm_tape=[0, 0])
-    for blob in (seeded, warm):
-        with pytest.raises(NotImplementedError, match="seeds"):
-            blk.unpack_container(blob)
+SEEDS = [b"ab", bytes(range(32)), b"\x00", b"the "]
+
+
+@pytest.mark.parametrize("case", ["malformed", "seeded", "warm"])
+def test_container_errors(case):
+    """A cut or padded container raises ValueError in both packages; a
+    seeded one (x3tpu's dictionary seeds) parses to x3tpu's seeds, and the
+    port writes it byte for byte; one with a warm-start tape still raises
+    NotImplementedError (the port has no warm start)."""
+    lens = [1, 2, 3, 4]
+    if case == "malformed":
+        good = jblk.pack_container(PAYLOADS, lens, 4096)
+        for bad in (good[:-1], good + b"\0", good[:10]):
+            with pytest.raises(ValueError):
+                jblk.unpack_container(bad)
+            with pytest.raises(ValueError):
+                blk.unpack_container(bad)
+    elif case == "seeded":
+        theirs = jblk.pack_container(PAYLOADS, lens, 4096, seeds=SEEDS)
+        assert blk.unpack_container(theirs) == (PAYLOADS, lens, 4096, SEEDS)
+        ours = blk.pack_container(PAYLOADS, lens, 4096, seeds=SEEDS)
+        assert ours == theirs
+        assert jblk.unpack_container(ours)[3] == SEEDS
+        for cut in (len(jblk.pack_container([], [], 4096)) + 3, 30):
+            with pytest.raises(ValueError):
+                blk.unpack_container(theirs[:cut])
+    else:
+        warm = jblk.pack_container(PAYLOADS, lens, 4096, seeds=[b"ab"],
+                                   warm_tape=[0, 0])
+        with pytest.raises(NotImplementedError, match="warm"):
+            blk.unpack_container(warm)
 
 
 def test_stats_match():

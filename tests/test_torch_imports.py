@@ -37,6 +37,16 @@ def test_guard_sees_banned_imports():
                                     (3, "x3tpu.parallel"), (7, "x3tpu")]
 
 
+def test_guard_covers_every_module():
+    """The port's entry points, host trainer and utilities are among the
+    files the guard reads."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("__init__", "__main__", "cli", "host", "codec",
+                "parallel/runtime", "parallel/blocks", "vm/driver",
+                "utils/timing", "utils/profiling", "utils/stats"):
+        assert f"x3tpu_torch/{mod}.py" in names, mod
+
+
 @pytest.mark.parametrize("path", FILES,
                          ids=[str(p.relative_to(ROOT)) for p in FILES])
 def test_port_imports_no_jax_package(path):

@@ -56,14 +56,18 @@ def core():
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.x3h_encode.argtypes = ([p, p, i, ctypes.c_longlong] + [i] * 12
-                               + [ctypes.c_uint] + [p] * 5)
+                               + [ctypes.c_uint, p, p, i] + [p] * 5)
     lib.x3h_encode.restype = i
     lib.x3h_smem_layout.argtypes = ([i] * 6 + [ctypes.c_longlong, ctypes.c_uint]
                                     + [p])
     lib.x3h_smem_layout.restype = None
     lib.x3h_window_counts.argtypes = [p, i, i, p]
     lib.x3h_window_counts.restype = None
-    lib.x3h_decode.argtypes = [p, p] + [i] * 9 + [p] * 5
+    lib.x3h_decode.argtypes = [p, p] + [i] * 9 + [p, p, i] + [p] * 5
+    lib.x3h_dict_layout.argtypes = [i] * 6 + [p]
+    lib.x3h_dict_layout.restype = None
+    lib.x3h_seed_scratch.argtypes = [i] * 6 + [p, p, i, i, p]
+    lib.x3h_seed_scratch.restype = None
     lib.x3h_decode.restype = i
     u = ctypes.c_uint
     lib.x3h_ix_search.argtypes = [p, p, i, i, u, p]
@@ -80,8 +84,21 @@ def core():
 PLACEMENTS = ("scratch", "shared")
 
 
-def _encode(lib, blocks, params, caps, placement):
-    """The host core's (words, byte_lens, counts, sizes, flags) as arrays."""
+def _seed_args(seeds):
+    """(strs pointer, lens pointer, K, the arrays) of the host core's seed
+    arguments; None: no seeds."""
+    if seeds is None:
+        return None, None, 0, ()
+    strs = np.ascontiguousarray(seeds[0], np.uint8)
+    lens = np.ascontiguousarray(seeds[1], np.int32)
+    return strs.ctypes.data, lens.ctypes.data, len(lens), (strs, lens)
+
+
+def _encode(lib, blocks, params, caps, placement, seeds=None):
+    """The host core's (words, byte_lens, counts, sizes, flags) as arrays;
+    every lane starts from ``seeds`` (strs u8 [K, 32], lens i32 [K]) where
+    given."""
+    sp, lp, k, _keep = _seed_args(seeds)
     mask = driver.smem_plan(params, caps).mask if placement == "shared" else 0
     text, tlen = codec.pack_blocks(blocks, params, caps)
     lanes = len(blocks)
@@ -96,7 +113,7 @@ def _encode(lib, blocks, params, caps, placement):
         params.magic_factor2, int(params.nl_remap), caps.dict_cap,
         caps.pair_cap, caps.ctx_items_cap, caps.ctx0_items_cap,
         caps.ctx_small_cap, caps.ctx_promo_rows, caps.out_words, mask,
-        words.ctypes.data, lens.ctypes.data, counts.ctypes.data,
+        sp, lp, k, words.ctypes.data, lens.ctypes.data, counts.ctypes.data,
         sizes.ctypes.data, flags.ctypes.data)
     assert rc == 0
     return words, lens, counts, sizes, flags
@@ -214,8 +231,10 @@ def test_smem_plan_matches_core_layout(core, caps):
     assert out.tolist() == want + [plan.nbytes]
 
 
-def _decode(lib, words, byte_lens, caps):
-    """The host decoder core's (out, out_lens, counts, sizes, flags)."""
+def _decode(lib, words, byte_lens, caps, seeds=None):
+    """The host decoder core's (out, out_lens, counts, sizes, flags), every
+    lane from the encoder's ``seeds`` where given."""
+    sp, lp, k, _keep = _seed_args(seeds)
     words = np.ascontiguousarray(words, np.uint32)
     byte_lens = np.ascontiguousarray(byte_lens, np.int32)
     lanes, iw = words.shape
@@ -227,14 +246,15 @@ def _decode(lib, words, byte_lens, caps):
     rc = lib.x3h_decode(
         words.ctypes.data, byte_lens.ctypes.data, lanes, iw, caps.block_bytes,
         caps.dict_cap, caps.pair_cap, caps.ctx_items_cap, caps.ctx0_items_cap,
-        caps.ctx_small_cap, caps.ctx_promo_rows, out.ctypes.data,
+        caps.ctx_small_cap, caps.ctx_promo_rows, sp, lp, k, out.ctypes.data,
         lens.ctypes.data, counts.ctypes.data, sizes.ctypes.data,
         flags.ctypes.data)
     assert rc == 0
     return out, lens, counts, sizes, flags
 
 
-OF_STEPS = 32  # x3_core.cuh: a lane past the event bound
+OF_STEPS = 32    # x3_core.cuh: a lane past the event bound
+OF_CORRUPT = 64  # x3_core.cuh: a symbol value past its model's total
 
 
 @pytest.mark.parametrize("pname", sorted(PARAMSETS))
@@ -270,11 +290,12 @@ def test_core_decode_matches_plain_with_overflow(core):
 
 @pytest.mark.parametrize("name", sorted(corrupt_streams()))
 def test_core_corrupt_stream_matches_plain(core, name):
-    """The corrupt streams end as they do in the plain decoder: the event
-    bound (OF_STEPS, "malformed"), or the same flags or length."""
+    """The corrupt streams end as they do in the plain decoder: a symbol
+    past its model's total (OF_CORRUPT) or the event bound (OF_STEPS), both
+    "malformed", or the same flags or length."""
     words, byte_lens = pack_streams([corrupt_streams()[name]])
     _, lens, _, _, flags = _decode(core, words, byte_lens, CORRUPT_CAPS)
-    if flags[0] & OF_STEPS:
+    if flags[0] & (OF_STEPS | OF_CORRUPT):
         got = "malformed"
     else:
         got = tuple(n for b, n in enumerate(OVERFLOW_FLAGS)

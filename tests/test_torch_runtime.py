@@ -133,6 +133,19 @@ def test_decompress_raw_out_retry(monkeypatch):
     assert flagged == [["out"], ["out"], []], flagged
 
 
+@pytest.mark.parametrize("blob", [b"", b"\0", b"\0\0", b"\0\0\0", bytes(4)],
+                         ids=["0", "1", "2", "3", "4"])
+def test_decompress_short_streams_raise(blob):
+    """x3tpu.host.decode calls each of these corrupt; so does the port: a
+    raw stream under 4 bytes (the shortest valid one, an empty block's)
+    raises at once, and bytes(4) decodes an event symbol past its model's
+    total (the corrupt flag), where the decoder used to clamp."""
+    with pytest.raises(RuntimeError, match="corrupt"):
+        host.decode(blob)
+    with pytest.raises(ValueError, match="malformed stream"):
+        runtime.decompress(blob, device="cpu")
+
+
 def test_caps_for_block_matches_x3tpu():
     for block in (1, 1000, 1 << 14, 100_000, 1 << 20, 3 << 20, 5 << 20,
                   16 << 20):
@@ -146,6 +159,8 @@ def test_import_and_compress_without_jax():
     code = (
         "import sys\n"
         "import x3tpu_torch\n"
+        "import x3tpu_torch.__main__, x3tpu_torch.cli, x3tpu_torch.host\n"
+        "import x3tpu_torch.utils.profiling, x3tpu_torch.utils.timing\n"
         "data = b'abracadabra ' * 20\n"
         "blob = x3tpu_torch.compress(data, device='cpu')\n"
         "assert x3tpu_torch.decompress(blob, device='cpu') == data\n"

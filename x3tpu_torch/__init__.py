@@ -11,7 +11,11 @@ Everything that ran on JAX is ported:
   CUDA kernels);
 * :mod:`x3tpu_torch.vm.driver` — the CUDA encoder and decoder kernels
   (``csrc/``);
-* :mod:`x3tpu_torch.parallel.runtime` — ``compress`` and ``decompress``.
+* :mod:`x3tpu_torch.parallel.runtime` — ``compress`` and ``decompress``,
+  with dictionary seeds and the wave journal;
+* :mod:`x3tpu_torch.host` — the seed trainer (``csrc/x3_train.cpp``, its
+  own copy of the JAX package's host codec's);
+* :mod:`x3tpu_torch.cli` — ``python -m x3tpu_torch``.
 
 Importing the package pulls in neither jax nor the kernel build.
 """

@@ -87,8 +87,34 @@ class EncCarry(NamedTuple):
     pair_of: torch.Tensor  # bool [L]
 
 
-def _init_shared(lanes: int, caps: CodecCaps, device):
+def check_seeds(seeds, caps: CodecCaps) -> int:
+    """The number of seeds K of ``seeds`` ((strs u8 [K, 32], lens i32 [K])
+    or None: 0); more seeds than ``caps.dict_cap`` raise ValueError."""
+    if seeds is None:
+        return 0
+    k = int(seeds[0].shape[0])
+    if k > caps.dict_cap:
+        raise ValueError(f"{k} dictionary seeds but dict_cap "
+                         f"{caps.dict_cap}")
+    return k
+
+
+def _init_shared(lanes: int, caps: CodecCaps, device, seeds=None):
+    """Every lane's starting state.  ``seeds`` (strs u8 [K, 32], lens i32
+    [K]; x3tpu/codec.py:89-125): every lane starts with the same K
+    fragments in its dictionary, tags 0..K-1 at recency ranks 0..K-1, and
+    one index-model symbol of freq 1 each.  Encoder and decoder must take
+    the same seeds (the container carries them)."""
+    k = check_seeds(seeds, caps)
     d = dm.dict_init(lanes, caps.dict_cap, device)
+    if k:
+        ii = torch.arange(caps.dict_cap, device=device)
+        d.strs[:, :k] = torch.as_tensor(seeds[0], dtype=torch.uint8,
+                                        device=device)
+        d.lens[:, :k] = torch.as_tensor(seeds[1], device=device).to(I64)
+        d.rank_of.copy_(ii.expand(lanes, -1))
+        d.tag_of.copy_(ii.expand(lanes, -1))
+        d = d._replace(n=torch.full((lanes,), k, dtype=I64, device=device))
     ctx0 = cm.ctx_init(
         lanes, caps.dict_cap, caps.pair_cap, caps.ctx0_items_cap,
         with_pair=False, small_cap=caps.ctx_small_cap,
@@ -103,6 +129,7 @@ def _init_shared(lanes: int, caps: CodecCaps, device):
     ms = torch.ones((lanes, MAX_MATCH_LEN), dtype=I64, device=device)
     ch = torch.ones((lanes, 256), dtype=I64, device=device)
     ix = torch.zeros((lanes, caps.dict_cap), dtype=I64, device=device)
+    ix[:, :k] = 1
     return d, ctx0, ctx1, ev, ms, ch, ix
 
 
@@ -317,12 +344,13 @@ def _enc_body(carry: EncCarry, params: X3Params) -> EncCarry:
 
 
 def enc_init_carry(text: torch.Tensor, tlen: torch.Tensor, params: X3Params,
-                   caps: CodecCaps) -> EncCarry:
+                   caps: CodecCaps, seeds=None) -> EncCarry:
     """Initial encoder carry for L blocks.  ``text`` u8 [L, TB] must be
-    zero-padded past each block (:func:`pack_blocks`)."""
+    zero-padded past each block (:func:`pack_blocks`); ``seeds`` as
+    :func:`_init_shared` takes them."""
     lanes = text.shape[0]
     dev = text.device
-    d, ctx0, ctx1, ev, ms, ch, ix = _init_shared(lanes, caps, dev)
+    d, ctx0, ctx1, ev, ms, ch, ix = _init_shared(lanes, caps, dev, seeds)
     z = lambda: torch.zeros((lanes,), dtype=I64, device=dev)
     return EncCarry(
         text=text, tlen=tlen.to(I64), p=z(), prev_c1=z(), c1=z(),
@@ -368,13 +396,16 @@ def enc_finalize(carry: EncCarry):
 
 
 @torch.inference_mode()
-def encode_blocks_chunked(text, tlen, params: X3Params, caps: CodecCaps):
+def encode_blocks_chunked(text, tlen, params: X3Params, caps: CodecCaps,
+                          seeds=None):
     """Encode L blocks: ``text`` u8 [L, TB] and ``tlen`` [L] (tensors or
-    arrays; the work runs on ``text``'s device).  Returns (words u32-in-int64
-    [L, out_words], byte_lens, counts, sizes, Overflow)."""
+    arrays; the work runs on ``text``'s device), every lane from the
+    dictionary ``seeds`` (strs u8 [K, 32], lens i32 [K]) where given.
+    Returns (words u32-in-int64 [L, out_words], byte_lens, counts, sizes,
+    Overflow)."""
     text = torch.as_tensor(text)
     tlen = torch.as_tensor(tlen, device=text.device)
-    carry = enc_init_carry(text, tlen, params, caps)
+    carry = enc_init_carry(text, tlen, params, caps, seeds)
     while enc_active(carry):
         carry = _enc_body(carry, params)
     return enc_finalize(carry)
@@ -404,6 +435,9 @@ class DecCarry(NamedTuple):
     sizes: torch.Tensor    # f32 [L, 5]
     pair_of: torch.Tensor  # bool [L]
     out_of: torch.Tensor   # bool [L]
+    # the port's own: a symbol's value lay at or past its model's total
+    # (x3host.cpp Model::find throws there); the lane has ended
+    corrupt: torch.Tensor  # bool [L]
 
 
 def _scatter_bytes(out: torch.Tensor, opos: torch.Tensor, data: torch.Tensor,
@@ -420,11 +454,13 @@ def _scatter_bytes(out: torch.Tensor, opos: torch.Tensor, data: torch.Tensor,
 def _literal_decode_loop(carry: DecCarry, is_new: torch.Tensor,
                          length: torch.Tensor):
     """Decode fragment bytes through the 256-symbol char model (x3.c:300);
-    returns (frag u8 [L, 32], ch, dec, src, nbits)."""
+    returns (frag u8 [L, 32], ch, dec, src, nbits, bad): ``bad`` marks the
+    lanes where a byte's value lay at or past the model's total."""
     lanes = is_new.shape[0]
     dev = is_new.device
     frag = torch.zeros((lanes, MAX_MATCH_LEN), dtype=torch.uint8, device=dev)
     nbits = torch.zeros((lanes,), dtype=F32, device=dev)
+    bad = torch.zeros((lanes,), dtype=torch.bool, device=dev)
     ch, dec, src = carry.ch, carry.dec, carry.src
     # byte k of a fragment follows k bytes of the same fragment, each of
     # which added one to the char model's total
@@ -433,6 +469,7 @@ def _literal_decode_loop(carry: DecCarry, is_new: torch.Tensor,
     for k in range(int(torch.where(is_new, length, 0).max())):
         act = is_new & (k < length)
         step, value = acm.ac_decode_value(dec, tot0 + k)
+        bad |= act & (value >= tot0 + k)
         sym, low, span = am.model_decode_sym(ch, value)
         dec, src = acm.ac_decode_update(dec, src, step, low, low + span, act)
         ch = am.model_inc(ch, sym, act)
@@ -443,7 +480,7 @@ def _literal_decode_loop(carry: DecCarry, is_new: torch.Tensor,
         k = len(syms)
         mask = is_new[:, None] & (iota(k, dev)[None, :] < length[:, None])
         frag[:, :k] = torch.stack(syms, 1) * mask
-    return frag, ch, dec, src, nbits
+    return frag, ch, dec, src, nbits, bad
 
 
 def _dec_body(carry: DecCarry) -> DecCarry:
@@ -459,6 +496,10 @@ def _dec_body(carry: DecCarry) -> DecCarry:
     # events[] only in the hit and E_NEW branches)
     etot = carry.ev.sum(1)
     step, value = acm.ac_decode_value(carry.dec, etot)
+    # every search's value must lie below its model's total; past it the
+    # stream is corrupt (x3host.cpp Model::find): the lane ends after this
+    # event, which completes as x3tpu's clamped search has it (as in K2)
+    bad = active & (value >= etot)
     esym, elow, espan = am.model_decode_sym(carry.ev, value)
     esym = torch.where(active, esym, E_EOF)
     dec, src = acm.ac_decode_update(carry.dec, carry.src, step, elow,
@@ -479,14 +520,16 @@ def _dec_body(carry: DecCarry) -> DecCarry:
     if any_new:
         mstot = carry.ms.sum(1)
         step, value = acm.ac_decode_value(dec, mstot)
+        bad |= is_new & (value >= mstot)
         lsym, lslow, lsspan = am.model_decode_sym(carry.ms, value)
         dec, src = acm.ac_decode_update(dec, src, step, lslow,
                                         lslow + lsspan, is_new)
         ms_bits = _bits(am.f32_prob(lsspan, mstot))
         ms = am.model_inc(carry.ms, lsym, is_new)
         length_new = lsym + 1
-        frag, ch, dec, src, lit_bits = _literal_decode_loop(
+        frag, ch, dec, src, lit_bits, lit_bad = _literal_decode_loop(
             carry._replace(dec=dec, src=src), is_new, length_new)
+        bad |= lit_bad
         add = torch.where(is_new, ev_bits + ms_bits + lit_bits, add)
 
     # (3) hit: resolve contexts, decode the payload by mode (x3.c:57-129)
@@ -514,8 +557,9 @@ def _dec_body(carry: DecCarry) -> DecCarry:
             if bool(sel.any()):
                 ptot = torch.where(sel, cm.ctx_encode_stats(fam, v, zero)[2],
                                    ptot)
-        ptot = ptot.clamp(min=1)
         step, value = acm.ac_decode_value(dec, ptot)
+        bad |= hit & (value >= ptot)
+        ptot = ptot.clamp(min=1)
         rank, plow, pspan = am.model_decode_sym(ix[:, :kx], value)
         tag = d.tag_of[lane, rank]
         for sel, fam, v in modes:
@@ -568,20 +612,21 @@ def _dec_body(carry: DecCarry) -> DecCarry:
     prev_c1 = torch.where(hit, carry.c1, carry.prev_c1 * ~is_new)
     c1 = torch.where(hit, tag, carry.c1 * ~is_new)
     return DecCarry(
-        carry.out, opos, carry.done | eof | out_of, prev_c1, c1, d, ctx0,
-        ctx1, pair_n, ev, ms, ch, ix, dec, src, counts, sizes, pair_of,
-        out_of,
+        carry.out, opos, carry.done | eof | out_of | bad, prev_c1, c1, d,
+        ctx0, ctx1, pair_n, ev, ms, ch, ix, dec, src, counts, sizes, pair_of,
+        out_of, carry.corrupt | bad,
     )
 
 
 def dec_init_carry(words: torch.Tensor, byte_lens: torch.Tensor,
-                   caps: CodecCaps) -> DecCarry:
+                   caps: CodecCaps, seeds=None) -> DecCarry:
     """Initial decoder carry for L streams: ``words`` [L, IW] (u32 values)
-    and ``byte_lens`` [L].  A lane whose ``byte_lens`` is <= 0 starts done
-    (x3tpu/vm/driver.py _init_state_dec)."""
+    and ``byte_lens`` [L]; ``seeds`` as :func:`_init_shared` takes them.
+    A lane whose ``byte_lens`` is <= 0 starts done (x3tpu/vm/driver.py
+    _init_state_dec)."""
     lanes = words.shape[0]
     dev = words.device
-    d, ctx0, ctx1, ev, ms, ch, ix = _init_shared(lanes, caps, dev)
+    d, ctx0, ctx1, ev, ms, ch, ix = _init_shared(lanes, caps, dev, seeds)
     byte_lens = byte_lens.to(I64)
     dec, src = acm.dec_init(bitio.source_init(words.to(I64), byte_lens))
     z = lambda: torch.zeros((lanes,), dtype=I64, device=dev)
@@ -594,7 +639,7 @@ def dec_init_carry(words: torch.Tensor, byte_lens: torch.Tensor,
         ev=ev, ms=ms, ch=ch, ix=ix, dec=dec, src=src,
         counts=torch.zeros((lanes, E_LAST), dtype=I64, device=dev),
         sizes=torch.zeros((lanes, E_LAST), dtype=F32, device=dev),
-        pair_of=f(), out_of=f(),
+        pair_of=f(), out_of=f(), corrupt=f(),
     )
 
 
@@ -629,20 +674,36 @@ def malformed(events: int) -> ValueError:
                       f"{events} events")
 
 
+def corrupt() -> ValueError:
+    """The error of a lane whose symbol search ran past its model's total
+    while none of its capacities had overflowed: a valid stream's values
+    always lie below it (x3host.cpp Model::find throws there)."""
+    return ValueError("malformed stream: a symbol's value lies past its "
+                      "model's total")
+
+
 @torch.inference_mode()
-def decode_blocks_chunked(words, byte_lens, caps: CodecCaps):
+def decode_blocks_chunked(words, byte_lens, caps: CodecCaps, seeds=None):
     """Decode L streams: ``words`` [L, IW] (u32 values; tensors or arrays,
-    the work runs on ``words``' device) and ``byte_lens`` [L].  The stream
-    is self-describing: no parameter shapes decoding.  Returns (out u8
-    [L, block_bytes], out_lens, counts, sizes, Overflow); raises
-    ValueError when a lane runs past the event bound."""
+    the work runs on ``words``' device) and ``byte_lens`` [L], every lane
+    from the dictionary ``seeds`` (strs u8 [K, 32], lens i32 [K]) where
+    given.  The stream is self-describing: no parameter shapes decoding.
+    Returns (out u8 [L, block_bytes], out_lens, counts, sizes, Overflow);
+    raises ValueError for a corrupt stream (a symbol past its model's
+    total) and when a lane runs past the event bound."""
     words = torch.as_tensor(words)
     byte_lens = torch.as_tensor(byte_lens, device=words.device)
-    carry = dec_init_carry(words, byte_lens, caps)
+    carry = dec_init_carry(words, byte_lens, caps, seeds)
     carry = dec_chunk(carry, caps.block_bytes + 1)
+    result = dec_finalize(carry)
+    # a lane whose state overflowed decodes past its capacities, where its
+    # values may run past a total: that is the overflow's to report (a
+    # retry at larger capacities), not the stream's
+    if bool((carry.corrupt & ~result[4].any_flag()).any()):
+        raise corrupt()
     if dec_active(carry):
         raise malformed(caps.block_bytes + 1)
-    return dec_finalize(carry)
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -667,12 +728,19 @@ def _flatten(tree, prefix="") -> Dict[str, object]:
     return out
 
 
+# fields of the port's carries that x3tpu's have not: left out of the
+# NumPy form, and started afresh by carry_from_numpy
+_PORT_ONLY = {"corrupt"}
+
+
 def carry_to_numpy(carry) -> Dict[str, np.ndarray]:
     """``{"field.sub": array}`` with x3tpu's names, layouts and dtypes.
     Also accepts an x3tpu ``EncCarry`` or ``DecCarry``, so the carries of
     both packages flatten alike."""
     out = {}
     for key, val in _flatten(carry).items():
+        if key in _PORT_ONLY:
+            continue
         arr = val
         if isinstance(val, torch.Tensor):
             arr = val.detach().cpu().numpy()
@@ -702,7 +770,10 @@ def carry_from_numpy(fields: Dict[str, np.ndarray], device="cpu"):
             for name in cls._fields
         ))
 
-    return build(DecCarry if "opos" in fields else EncCarry, "")
+    if "opos" not in fields:
+        return build(EncCarry, "")
+    carry = build(DecCarry, "")
+    return carry._replace(corrupt=torch.zeros_like(carry.done))
 
 
 _SUBTREES = {

@@ -57,9 +57,10 @@ constexpr uint32_t HALF = 0x40000000u, M31 = 0x7FFFFFFFu;
 // EVENT_INIT_FREQS (x3.c:238-244): 1024 for CTX0 and CTX1, 1 for the rest
 X3_HD int event_init_freq(int e) { return e < E_IDX1 ? 1024 : 1; }
 
-// per-lane flag bits returned to the wrapper (x3tpu_torch/vm/driver.py)
+// per-lane flag bits returned to the wrapper (x3tpu_torch/vm/driver.py);
+// OF_CORRUPT: the decoder met a symbol value past its model's total
 constexpr int OF_DICT = 1, OF_CTX0 = 2, OF_CTX1 = 4, OF_PAIRS = 8;
-constexpr int OF_OUT = 16, OF_STEPS = 32;
+constexpr int OF_OUT = 16, OF_STEPS = 32, OF_CORRUPT = 64;
 
 // Shared memory of one CTA (x3tpu_torch/vm/driver.py mirrors both): what a
 // block may use on the card, and the most the kernels' static part (Lane,
@@ -91,7 +92,12 @@ enum {
 
 // Scratch layout of one lane.  The dictionary keeps strs (D x 32 bytes),
 // lens, rank_of, tag_of (recency rank -> tag) and the index model ix; only
-// the decoder keeps tag_of, and the encoder leaves it zero.  sm[k] is plane
+// the decoder reads tag_of.  Past the dictionary's live entries every
+// plane is zero.  A seeded start (x3tpu/codec.py _init_shared) writes the
+// K seeds' strs and lens, rank_of = tag_of = 0..K-1 and ix over its first
+// K entries (seed_dict) before the launch; both kernels read the same
+// planes, but K1 keeps ix as freqs (1 a seed) and K2 as their inclusive
+// cumulative sum (1..K).  sm[k] is plane
 // k's byte offset in the CTA's dynamic shared memory, or -1 where the plane
 // stays in the scratch (the text row then stays in the kernel's input).
 struct Layout {
@@ -172,6 +178,23 @@ X3_HD void place_smem(Layout& L, int64_t tb, uint32_t mask) {
     }
   }
   L.smem_bytes = at;
+}
+
+// The seeded start of a lane's zeroed scratch (the host build's; the
+// wrapper writes the same planes with PyTorch, x3tpu_torch/vm/driver.py
+// seed_scratch): the K seeds' strings (zero-padded, K x 32 bytes) and
+// lengths at tags 0..K-1, rank_of = tag_of = 0..K-1, and the index model,
+// freq 1 a seed (cumulative: 1..K, the decoder's inclusive sum).
+inline void seed_dict(const Layout& L, int32_t* scr, const uint8_t* strs,
+                      const int32_t* lens, int K, bool cumulative) {
+  if (K <= 0) return;
+  memcpy((uint8_t*)(scr + L.strs), strs, (size_t)K * MML);
+  for (int j = 0; j < K; ++j) {
+    scr[L.lens + j] = lens[j];
+    scr[L.rank_of + j] = j;
+    scr[L.tag_of + j] = j;
+    scr[L.ix + j] = cumulative ? j + 1 : 1;
+  }
 }
 
 // One context family's tables, resolved to pointers (scratch or shared).
@@ -1197,7 +1220,9 @@ struct LaneIO {
   const uint8_t* text;  // the lane's padded text row [tb]
   int64_t tb;
   int tlen;
-  int32_t* scr;         // the lane's zeroed scratch (Layout::words)
+  int seeds;            // K: the dictionary seeds the scratch holds
+  int32_t* scr;         // the lane's scratch (Layout::words), zeroed but
+                        // for the seeds
   uint8_t* smem;        // the planes the layout puts in shared memory
   uint32_t* words;      // the lane's zeroed output row (out_words)
   int32_t* byte_len;
@@ -1255,7 +1280,8 @@ enum {
 #define X3_COUNT(k, n) do {} while (0)
 #endif
 
-// Copy the text row into shared memory and zero the other planes there.
+// Copy the text row into shared memory and zero the other planes there;
+// with seeds, the dictionary planes there are copied from the scratch.
 template <class P>
 X3_HD void init_smem(const P& par, const Layout& L, const LaneIO& io) {
   (void)par;  // the host copies with memcpy
@@ -1276,6 +1302,21 @@ X3_HD void init_smem(const P& par, const Layout& L, const LaneIO& io) {
     memcpy(dst, io.text, io.tb);
 #endif
     zero_from = L.sm[PL_TEXT] + ((io.tb + 15) & ~(int64_t)15);
+  }
+  if (io.seeds > 0) {
+    // a seeded start, once a launch: plane by plane, four bytes a thread
+    // (a lane's scratch is only 4-byte aligned)
+    for (int k = PL_TEXT + 1; k < PL_COUNT; ++k) {
+      if (L.sm[k] < 0) continue;
+      const int64_t off = k == PL_STRS ? L.strs : k == PL_LENS ? L.lens
+                          : k == PL_RANK_OF ? L.rank_of
+                          : k == PL_IX ? L.ix : -1;
+      int32_t* dst = (int32_t*)(io.smem + L.sm[k]);
+      const int64_t n = plane_bytes(L, io.tb, k) / 4;
+      for (int64_t i = par.tid(); i < n; i += par.nthr())
+        dst[i] = off >= 0 ? io.scr[off + i] : 0;
+    }
+    return;
   }
 #ifdef __CUDA_ARCH__
   for (int64_t i = zero_from / 16 + par.tid(); i < L.smem_bytes / 16;
@@ -1322,7 +1363,8 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
   init_smem(par, L, io);
   if (par.leader()) {
     R.flags = 0;
-    R.p = R.prev_c1 = R.c1 = R.pair_n = R.dn = 0;
+    R.p = R.prev_c1 = R.c1 = R.pair_n = 0;
+    R.dn = io.seeds;  // a seeded dictionary starts with its K entries
     R.tlen = io.tlen;
     R.hub_n[0] = R.hub_n[1] = R.promo_n[0] = R.promo_n[1] = 0;
     for (int e = 0; e < E_LAST; ++e) {

@@ -115,13 +115,42 @@ void x3h_window_counts(const uint8_t* text, int p, int W, int32_t* out) {
   x3::window_counts(x3::ParHost(), 0, 1, text, p, W, T, out);
 }
 
-// Same arguments and outputs as x3_encode in x3_encoder.cu, in host memory;
-// words [lanes, out_words] must be zeroed.  The planes of smem_mask live in
-// a buffer of their own, as the kernel's shared memory holds them.
+// Offsets of the dictionary planes a seeded start writes, as
+// x3_dict_layout in x3_encoder.cu: out [5] = strs, lens, rank_of, tag_of,
+// ix (int32 words).
+void x3h_dict_layout(int D, int pair_cap, int items1, int items0,
+                     int small_cap, int promo_rows, long long* out) {
+  const x3::Layout lay = x3::make_layout(
+      x3::Caps{D, pair_cap, items1, items0, small_cap, promo_rows, 0});
+  out[0] = lay.strs;
+  out[1] = lay.lens;
+  out[2] = lay.rank_of;
+  out[3] = lay.tag_of;
+  out[4] = lay.ix;
+}
+
+// One lane's zeroed scratch scr (x3_scratch_words) seeded by seed_dict
+// with the K seeds (strs K x 32 bytes, lens K): the host build's seeding,
+// which the wrapper's (driver.seed_scratch) must equal.
+void x3h_seed_scratch(int D, int pair_cap, int items1, int items0,
+                      int small_cap, int promo_rows, const uint8_t* strs,
+                      const int32_t* lens, int K, int cumulative,
+                      int32_t* scr) {
+  const x3::Layout lay = x3::make_layout(
+      x3::Caps{D, pair_cap, items1, items0, small_cap, promo_rows, 0});
+  x3::seed_dict(lay, scr, strs, lens, K, cumulative != 0);
+}
+
+// Same arguments and outputs as x3_encode in x3_encoder.cu, in host memory,
+// but for the seeds: the K seeds themselves (seed_strs K x 32 bytes,
+// seed_lens K), which seed_dict writes into each lane's scratch; words
+// [lanes, out_words] must be zeroed.  The planes of smem_mask live in a
+// buffer of their own, as the kernel's shared memory holds them.
 int x3h_encode(const uint8_t* text, const int32_t* tlen, int lanes,
                long long tb, int T, int W, int f1, int f2, int nl, int D,
                int pair_cap, int items1, int items0, int small_cap,
                int promo_rows, int out_words, unsigned smem_mask,
+               const uint8_t* seed_strs, const int32_t* seed_lens, int K,
                uint32_t* words, int32_t* byte_lens, int32_t* counts,
                float* sizes, int32_t* flags) {
   const x3::Caps caps{D, pair_cap, items1, items0, small_cap, promo_rows,
@@ -134,10 +163,12 @@ int x3h_encode(const uint8_t* text, const int32_t* tlen, int lanes,
   std::vector<int32_t> smem(lay.smem_bytes / 4 + 1);
   for (int lane = 0; lane < lanes; ++lane) {
     scratch.assign(lay.words, 0);
+    x3::seed_dict(lay, scratch.data(), seed_strs, seed_lens, K, false);
     x3::LaneIO io;
     io.text = text + (long long)lane * tb;
     io.tb = tb;
     io.tlen = tlen[lane];
+    io.seeds = K;
     io.scr = scratch.data();
     io.smem = (uint8_t*)smem.data();
     io.words = words + (long long)lane * out_words;
@@ -154,10 +185,13 @@ int x3h_encode(const uint8_t* text, const int32_t* tlen, int lanes,
 }
 
 // Same arguments and outputs as x3_decode in x3_decoder.cu, in host
-// memory; out [lanes, block_bytes] must be zeroed.
+// memory, the seeds as x3h_encode takes them; out [lanes, block_bytes]
+// must be zeroed.
 int x3h_decode(const uint32_t* words, const int32_t* byte_lens, int lanes,
                int iw, int block_bytes, int D, int pair_cap, int items1,
-               int items0, int small_cap, int promo_rows, uint8_t* out,
+               int items0, int small_cap, int promo_rows,
+               const uint8_t* seed_strs, const int32_t* seed_lens, int K,
+               uint8_t* out,
                int32_t* out_lens, int32_t* counts, float* sizes,
                int32_t* flags) {
   const x3::Caps caps{D, pair_cap, items1, items0, small_cap, promo_rows, 0};
@@ -165,10 +199,12 @@ int x3h_decode(const uint32_t* words, const int32_t* byte_lens, int lanes,
   std::vector<int32_t> scratch;
   for (int lane = 0; lane < lanes; ++lane) {
     scratch.assign(lay.words, 0);
+    x3::seed_dict(lay, scratch.data(), seed_strs, seed_lens, K, true);
     x3::DecIO io;
     io.words = words + (long long)lane * iw;
     io.nbytes = byte_lens[lane];
     io.iw = iw;
+    io.seeds = K;
     io.scr = scratch.data();
     io.out = out + (long long)lane * block_bytes;
     io.block_bytes = block_bytes;

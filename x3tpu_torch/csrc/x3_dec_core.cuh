@@ -41,8 +41,11 @@
 // family 0, the dictionary.
 //
 // Every index taken from the stream is clamped or bounded before it
-// addresses memory, and a lane stops after block_bytes + 1 events with
-// OF_STEPS: a corrupt stream ends in a flag, never in a fault or a hang.
+// addresses memory; a lane whose symbol value lies at or past its model's
+// total stops after that event with OF_CORRUPT (x3host.cpp Model::find
+// throws there; the event completes as x3tpu's clamped search has it),
+// and one still decoding after block_bytes + 1 events with OF_STEPS: a
+// corrupt stream ends in a flag, never in a fault or a hang.
 // Every lane's end (EOF, OF_OUT, the event bound) is a job of its own that
 // every warp takes and leaves on.
 #pragma once
@@ -56,7 +59,9 @@ constexpr uint32_t SENTINEL = 0x80000000u;  // read-past-end word (bio.c:38)
 struct DecIO {
   const uint32_t* words;  // the lane's stream words [iw]
   int nbytes, iw;
-  int32_t* scr;           // the lane's zeroed scratch (Layout::words)
+  int seeds;              // K: the dictionary seeds the scratch holds
+  int32_t* scr;           // the lane's scratch (Layout::words), zeroed but
+                          // for the seeds (ix as their cumulative sum)
   uint8_t* out;           // the lane's zeroed output row [block_bytes]
   int block_bytes;
   int32_t* out_len;
@@ -726,7 +731,7 @@ X3_HD void dict_job(const P& par, const Layout& L, const Planes& pl,
     pc.mark(PHD_D_IX);
   }
   const int tag = jb.tag;
-  if (tag < jb.dn) {  // else no live entry moves (dn is 0)
+  if (tag < jb.dn) {  // else the tag is not live: nothing moves
     const int r = pl.rank_of[tag];
     for (int hi = r; hi > 0; hi -= 32) {
       const int lo = imax(hi - 32, 0);
@@ -842,6 +847,9 @@ X3_HD int leader_event(const P& par, const Layout& L, const Planes& pl,
   for (int e = 0; e < E_LAST; ++e) etot += Ld.ev[e];
   uint32_t step, value;
   dec_value(S, etot, step, value);
+  // a value past the total decodes as the last symbol, EOF, and ends the
+  // lane; it marks the stream corrupt
+  if (value >= (uint32_t)etot) Ld.flags |= OF_CORRUPT;
   const Sym e = small_decode(Ld.ev, E_LAST, value);
   dec_update(S, step, e.low, e.low + e.span);
 #pragma unroll
@@ -863,6 +871,7 @@ X3_HD int leader_event(const P& par, const Layout& L, const Planes& pl,
   if (e.sym == E_NEW) {
     // its length and bytes (x3.c:274, 300)
     dec_value(S, Ld.mtot, step, value);
+    bool bad = value >= Ld.mtot;
     const Sym l = lane_search(Ld.ms, value);
     dec_update(S, step, l.low, l.low + l.span);
     for (int i = 0; i < VL; ++i)
@@ -879,6 +888,7 @@ X3_HD int leader_event(const P& par, const Layout& L, const Planes& pl,
         continue;
       }
       dec_value(S, Ld.ctot + b, step, value);
+      bad |= value >= Ld.ctot + b;
       const Sym c = char_search(Ld.ch, value);
       dec_update(S, step, c.low, c.low + c.span);
       for (int i = 0; i < VL; ++i)
@@ -914,6 +924,7 @@ X3_HD int leader_event(const P& par, const Layout& L, const Planes& pl,
     // step 6)
     if (fits) Ld.opos += len;
     else Ld.flags |= OF_OUT, Ld.done = 1;
+    if (bad) Ld.flags |= OF_CORRUPT, Ld.done = 1;
     pc.mark(PHD_PROBE);
     return JOB_NEW;
   }
@@ -930,8 +941,10 @@ X3_HD int leader_event(const P& par, const Layout& L, const Planes& pl,
     wait_ge(&sh.prog[mode == E_CTX0 ? W_F0 : W_F1], k + 1);
     pc.mark(PHD_WAIT_ROWS);
   }
-  const int ptot = imax(ix ? Ld.ixtot : (int)rp.total, 1);
+  const uint32_t total = ix ? (uint32_t)Ld.ixtot : rp.total;
+  const int ptot = imax((int)total, 1);
   dec_value(S, ptot, step, value);
+  const bool bad = value >= total;
   int tag;
   const Sym ps = ix ? ix_search(pl.ix, pl.tag_of, L.D, Ld.ixn, value, tag)
                     : wsearch(rp.freqs, rp.tags, rp.n, rp.K, rp.exc, value,
@@ -956,6 +969,7 @@ X3_HD int leader_event(const P& par, const Layout& L, const Planes& pl,
   }
   if (fits) Ld.opos += len;
   else Ld.flags |= OF_OUT, Ld.done = 1;
+  if (bad) Ld.flags |= OF_CORRUPT, Ld.done = 1;
   pc.mark(PHD_UPDATES);
   return JOB_HIT;
 }
@@ -988,7 +1002,10 @@ X3_HD void decode_lane(const P& par, const Layout& L, const DecIO& io,
     DecState& S = Ld.S;
     S.low = 0;
     S.high = TOP;
-    Ld.flags = Ld.opos = Ld.dn = Ld.ixn = Ld.ixtot = Ld.room = 0;
+    Ld.flags = Ld.opos = Ld.room = 0;
+    // a seeded dictionary starts with its K entries, the index model with
+    // K symbols of freq 1
+    Ld.dn = Ld.ixn = Ld.ixtot = io.seeds;
     Ld.done = io.nbytes <= 0;  // x3tpu/vm/driver.py _init_state_dec
 #pragma unroll
     for (int e = 0; e < E_LAST; ++e) {

@@ -43,10 +43,11 @@
 //   its bytes, between two CTA barriers.
 // Every other hand-off is a counter in shared memory with one writer
 // (st.release / ld.acquire): a ring slot, a prepared row, the dictionary
-// warp's last job, warp 1's id.  A lane's end (EOF, OF_OUT, the event
-// bound) is a job every warp takes and leaves on.  Every table lives in
-// the zeroed global scratch (every plane in shared memory measured no
-// faster: L1 holds a lane's hot planes, and the carve-out shrinks it).
+// warp's last job, warp 1's id.  A lane's end (EOF, OF_OUT, OF_CORRUPT,
+// the event bound) is a job every warp takes and leaves on.  Every table
+// lives in the zeroed global scratch, with the seeds written in where
+// there are seeds (every plane in shared memory measured no faster: L1
+// holds a lane's hot planes, and the carve-out shrinks it).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC (no --use_fast_math: the size
@@ -66,7 +67,7 @@ static_assert(kThreads % 32 == 0 && kThreads >= 32 * x3::W_JOBS &&
 __global__ void __launch_bounds__(kThreads)
 decoder_kernel(const uint32_t* __restrict__ words,
                const int32_t* __restrict__ byte_lens, int iw, int block_bytes,
-               x3::Layout lay, int32_t* scratch, uint8_t* out,
+               x3::Layout lay, int seeds, int32_t* scratch, uint8_t* out,
                int32_t* out_lens, int32_t* counts, float* sizes,
                int32_t* flags, long long* phases) {
   __shared__ x3::DecShared sh;
@@ -75,6 +76,7 @@ decoder_kernel(const uint32_t* __restrict__ words,
   io.words = words + lane * iw;
   io.nbytes = byte_lens[lane];
   io.iw = iw;
+  io.seeds = seeds;
   io.scr = scratch + lane * lay.words;
   io.out = out + lane * block_bytes;
   io.block_bytes = block_bytes;
@@ -108,10 +110,13 @@ int x3_decoder_info(int* out) {
 // words u32 [lanes, iw], byte_lens i32 [lanes], scratch i32 [lanes,
 // x3_scratch_words(...)] and out u8 [lanes, block_bytes] zeroed, out_lens
 // i32 [lanes], counts i32 [lanes, 5], sizes f32 [lanes, 5], flags i32
-// [lanes].  Returns cudaGetLastError() after the launch.
+// [lanes].  seeds: K, the dictionary seeds the scratch holds (x3_core.cuh
+// seed_dict, ix as their cumulative sum), 0 for none.  Returns
+// cudaGetLastError() after the launch.
 int x3_decode(const void* words, const void* byte_lens, int lanes, int iw,
               int block_bytes, int D, int pair_cap, int items1, int items0,
-              int small_cap, int promo_rows, void* scratch, void* out,
+              int small_cap, int promo_rows, int seeds, void* scratch,
+              void* out,
               void* out_lens, void* counts, void* sizes, void* flags,
               void* stream
 #ifdef X3_DEC_PHASES
@@ -124,7 +129,7 @@ int x3_decode(const void* words, const void* byte_lens, int lanes, int iw,
   const x3::Caps caps{D, pair_cap, items1, items0, small_cap, promo_rows, 0};
   decoder_kernel<<<lanes, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)words, (const int32_t*)byte_lens, iw, block_bytes,
-      x3::make_layout(caps),
+      x3::make_layout(caps), seeds,
       (int32_t*)scratch, (uint8_t*)out, (int32_t*)out_lens, (int32_t*)counts,
       (float*)sizes, (int32_t*)flags, (long long*)phases);
   return (int)cudaGetLastError();

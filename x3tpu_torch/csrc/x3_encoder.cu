@@ -31,7 +31,10 @@
 //   and index model, both hubs, the ctx1 row maps) live in the CTA's
 //   dynamic shared memory where the launch's plan puts them
 //   (x3tpu_torch/vm/driver.py smem_plan); the rest stays in the zeroed
-//   global scratch, reached by the same code through a pointer.
+//   global scratch, reached by the same code through a pointer.  A
+//   seeded launch (the wrapper writes the dictionary seeds into the
+//   scratch) copies the seeded planes into shared memory once, at the
+//   lane's start, and nothing per event.
 // - 512 worker threads: the scan's share of a thread halves against 256
 //   (992 workers, 1024 threads in all, measured slower).
 //
@@ -55,9 +58,9 @@ static_assert(sizeof(x3::Lane) + sizeof(x3::Shared) <= x3::SMEM_STATIC,
 __global__ void __launch_bounds__(kThreads + 32)
 encoder_kernel(const uint8_t* __restrict__ text, const int32_t* __restrict__ tlen,
                int64_t tb, x3::Params prm, x3::Caps caps, x3::Layout lay,
-               int32_t* scratch, uint32_t* words, int32_t* byte_lens,
-               int32_t* counts, float* sizes, int32_t* flags,
-               long long* phases) {
+               int seeds, int32_t* scratch, uint32_t* words,
+               int32_t* byte_lens, int32_t* counts, float* sizes,
+               int32_t* flags, long long* phases) {
   __shared__ x3::Lane R;
   __shared__ x3::Shared sh;
   extern __shared__ __align__(16) uint8_t planes[];
@@ -66,6 +69,7 @@ encoder_kernel(const uint8_t* __restrict__ text, const int32_t* __restrict__ tle
   io.text = text + lane * tb;
   io.tb = tb;
   io.tlen = tlen[lane];
+  io.seeds = seeds;
   io.scr = scratch + lane * lay.words;
   io.smem = planes;
   io.words = words + lane * caps.out_words;
@@ -104,6 +108,19 @@ long long x3_scratch_words(int D, int pair_cap, int items1, int items0,
       .words;
 }
 
+// Offsets, in int32 words of a lane's scratch, of the dictionary planes
+// a seeded start writes: out [5] = strs, lens, rank_of, tag_of, ix.
+void x3_dict_layout(int D, int pair_cap, int items1, int items0,
+                    int small_cap, int promo_rows, long long* out) {
+  const x3::Layout lay = x3::make_layout(
+      make_caps(D, pair_cap, items1, items0, small_cap, promo_rows, 0));
+  out[0] = lay.strs;
+  out[1] = lay.lens;
+  out[2] = lay.rank_of;
+  out[3] = lay.tag_of;
+  out[4] = lay.ix;
+}
+
 // K1's registers a thread, static shared memory and local (spill) bytes a
 // thread, as the loaded module has them: out [3].
 int x3_encoder_info(int* out) {
@@ -119,13 +136,16 @@ int x3_encoder_info(int* out) {
 // text u8 [lanes, tb], tlen i32 [lanes], scratch i32 [lanes, scratch_words]
 // and words u32 [lanes, out_words] zeroed, byte_lens i32 [lanes], counts
 // i32 [lanes, 5], sizes f32 [lanes, 5], flags i32 [lanes].  smem_mask: the
-// planes (x3_core.cuh PL_*) that live in shared memory.  Returns
+// planes (x3_core.cuh PL_*) that live in shared memory; seeds: K, the
+// dictionary seeds the scratch holds (x3_core.cuh seed_dict, ix as
+// freqs), 0 for none.  Returns
 // cudaErrorInvalidValue when they need more than a block may have, else
 // cudaGetLastError() after the launch.
 int x3_encode(const void* text, const void* tlen, int lanes, long long tb,
               int T, int W, int f1, int f2, int nl, int D, int pair_cap,
               int items1, int items0, int small_cap, int promo_rows,
-              int out_words, unsigned smem_mask, void* scratch, void* words,
+              int out_words, unsigned smem_mask, int seeds, void* scratch,
+              void* words,
               void* byte_lens, void* counts, void* sizes, void* flags,
               void* stream
 #ifdef X3_PHASES
@@ -148,7 +168,7 @@ int x3_encode(const void* text, const void* tlen, int lanes, long long tb,
   if (rc != cudaSuccess) return (int)rc;
   encoder_kernel<<<lanes, kThreads + 32, lay.smem_bytes,
                    (cudaStream_t)stream>>>(
-      (const uint8_t*)text, (const int32_t*)tlen, tb, prm, caps, lay,
+      (const uint8_t*)text, (const int32_t*)tlen, tb, prm, caps, lay, seeds,
       (int32_t*)scratch, (uint32_t*)words, (int32_t*)byte_lens,
       (int32_t*)counts, (float*)sizes, (int32_t*)flags, (long long*)phases);
   return (int)cudaGetLastError();

@@ -17,9 +17,9 @@ decoder knows block boundaries and exact decoded sizes:
     table  count x (orig_len u32, comp_len u32)
     payloads, concatenated in block order (each a raw x3 stream)
 
-All integers little-endian.  The port has no dictionary seeds and no
-warm start: it writes neither, and reading a container that carries
-either raises ``NotImplementedError``.
+All integers little-endian.  The port has no warm start: it writes no
+tape, and reading a container that carries one raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,12 +46,24 @@ def split_blocks(data: bytes, block_bytes: int) -> List[bytes]:
 
 def pack_container(
     payloads: Sequence[bytes], orig_lens: Sequence[int], block_bytes: int,
+    seeds: Sequence[bytes] = (),
 ) -> bytes:
+    """The container of ``payloads`` (``seeds``: the dictionary seeds every
+    block was coded from, each 1-32 bytes)."""
     if len(payloads) != len(orig_lens):
         raise ValueError(
             f"{len(payloads)} payloads but {len(orig_lens)} orig_lens"
         )
-    parts = [_HEADER.pack(MAGIC, VERSION, 0, 0, len(payloads), block_bytes)]
+    flags = FLAG_SEEDS if seeds else 0
+    parts = [
+        _HEADER.pack(MAGIC, VERSION, flags, 0, len(payloads), block_bytes)
+    ]
+    if seeds:
+        parts.append(struct.pack("<H", len(seeds)))
+        for frag in seeds:
+            if not 1 <= len(frag) <= 32:
+                raise ValueError(f"a seed of {len(frag)} bytes")
+            parts.append(struct.pack("<B", len(frag)) + frag)
     for o, p in zip(orig_lens, payloads):
         parts.append(_ENTRY.pack(o, len(p)))
     parts.extend(payloads)
@@ -63,11 +75,11 @@ def is_container(data: bytes) -> bool:
 
 
 def unpack_container(data: bytes):
-    """Returns (payloads, orig_lens, block_bytes).  Raises ValueError on
-    any malformed/truncated container."""
+    """Returns (payloads, orig_lens, block_bytes, seeds).  Raises
+    ValueError on any malformed/truncated container."""
     try:
         return _unpack_container(data)
-    except struct.error as e:  # truncated header/table
+    except (struct.error, IndexError) as e:  # truncated header/seeds/table
         raise ValueError(f"corrupt container: {e}") from None
 
 
@@ -77,11 +89,20 @@ def _unpack_container(data: bytes):
         raise ValueError("not an x3tpu container")
     if ver != VERSION:
         raise ValueError(f"unsupported container version {ver}")
-    if flags & (FLAG_SEEDS | FLAG_WARM):
+    if flags & FLAG_WARM:
         raise NotImplementedError(
-            "x3tpu_torch: containers with dictionary seeds or a warm-start "
-            "tape are not supported by the port")
+            "x3tpu_torch: containers with a warm-start tape are not "
+            "supported by the port")
     off = _HEADER.size
+    seeds: List[bytes] = []
+    if flags & FLAG_SEEDS:
+        (nseeds,) = struct.unpack_from("<H", data, off)
+        off += 2
+        for _ in range(nseeds):
+            ln = data[off]
+            off += 1
+            seeds.append(data[off : off + ln])
+            off += ln
     table = []
     for _ in range(count):
         table.append(_ENTRY.unpack_from(data, off))
@@ -93,4 +114,4 @@ def _unpack_container(data: bytes):
         off += comp
     if off != len(data):
         raise ValueError("container length mismatch")
-    return payloads, orig_lens, block_bytes
+    return payloads, orig_lens, block_bytes, seeds

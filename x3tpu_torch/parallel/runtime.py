@@ -1,30 +1,96 @@
 """Runtime of the port (``x3tpu.parallel.runtime`` on one device): block
-splitting, capacity heuristics, waves of independent blocks, overflow
-auto-retry, container framing; ``compress`` and ``decompress``.
+splitting, capacity heuristics, dictionary seeds, waves of independent
+blocks, overflow auto-retry, the wave journal, container framing;
+``compress`` and ``decompress``.
 
 The engine follows the device and nothing else: ``device="cuda"`` runs the
 CUDA kernels (``x3tpu_torch.vm.driver``) and raises without a card,
 ``device="cpu"`` runs the plain PyTorch codec (``x3tpu_torch.codec``).
 A configuration the kernels cannot run raises; nothing is demoted.  Not
-ported: dictionary seeds and the warm tape (a container that carries
-either raises ``NotImplementedError``), the device mesh, the wave journal.
+ported: the warm tape (a container that carries one raises
+``NotImplementedError``) and the device mesh.
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
+import hashlib
+import json
+import os
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from x3tpu_torch import codec
-from x3tpu_torch.config import CodecCaps, X3Params, resolve_device
+from x3tpu_torch.config import (MAX_MATCH_LEN, CodecCaps, X3Params,
+                                resolve_device)
 from x3tpu_torch.parallel import blocks as blk
 from x3tpu_torch.utils.stats import CodecStats
 
 
 MAX_RETRIES = 3  # capacity doublings before an overflow is raised
+MIN_STREAM = 4   # bytes of the shortest valid stream (an empty block's)
+
+
+class WaveJournal:
+    """Per-wave checkpoint of a long compression (``x3tpu.parallel.runtime
+    .WaveJournal``; the reference aborts on any failure).  Completed waves
+    are appended under a job fingerprint; running the same job again
+    resumes after them.  One JSON record a line on an append-only file:
+    the fingerprint, then the seeds (recorded once) and each wave's
+    payloads and stats.  A file of another job, or one that does not
+    parse, starts over."""
+
+    def __init__(self, path: str, fingerprint: str):
+        self.path = path
+        self.fingerprint = fingerprint
+        self.done: dict = {}
+        self.seed_bytes: Optional[List[bytes]] = None
+        try:
+            with open(path, "r", encoding="ascii") as f:
+                lines = f.read().splitlines()
+            if json.loads(lines[0]).get("fingerprint") == fingerprint:
+                for line in lines[1:]:
+                    self._apply(json.loads(line))
+        except (OSError, ValueError, IndexError, KeyError, TypeError):
+            self.done, self.seed_bytes = {}, None
+        if not self.done and self.seed_bytes is None:
+            with open(path, "w", encoding="ascii") as f:
+                f.write(json.dumps({"fingerprint": fingerprint}) + "\n")
+
+    def _apply(self, rec: dict) -> None:
+        payloads = [base64.b64decode(p) for p in rec["payloads"]]
+        if rec["kind"] == "seeds":
+            self.seed_bytes = payloads
+        else:
+            stats = CodecStats(np.array(rec["events"], np.int64),
+                               np.array(rec["sizes"], np.float64))
+            self.done[rec["wave"]] = (payloads, stats)
+
+    def _append(self, rec: dict) -> None:
+        rec["payloads"] = [base64.b64encode(p).decode() for p in
+                           rec["payloads"]]
+        with open(self.path, "a", encoding="ascii") as f:
+            f.write(json.dumps(rec) + "\n")
+
+    def record_seeds(self, seed_bytes: List[bytes]) -> None:
+        self._append({"kind": "seeds", "payloads": seed_bytes})
+        self.seed_bytes = seed_bytes
+
+    def record(self, wave: int, payloads: List[bytes],
+               stats: CodecStats) -> None:
+        self._append({"kind": "wave", "wave": wave, "payloads": payloads,
+                      "events": stats.events.tolist(),
+                      "sizes": stats.sizes.tolist()})
+        self.done[wave] = (payloads, stats)
+
+    def finish(self) -> None:
+        try:
+            os.unlink(self.path)
+        except FileNotFoundError:
+            pass
 
 
 def _pow2(n: int) -> int:
@@ -67,6 +133,17 @@ class RunResult:
     stats: CodecStats
 
 
+def seeds_to_arrays(seed_bytes: Sequence[bytes]):
+    """Seed fragments -> (strs u8 [K, 32], lens i32 [K]) arrays, the
+    strings zero-padded (x3tpu/parallel/runtime.py:172)."""
+    strs = np.zeros((len(seed_bytes), MAX_MATCH_LEN), np.uint8)
+    lens = np.zeros((len(seed_bytes),), np.int32)
+    for i, b in enumerate(seed_bytes):
+        strs[i, : len(b)] = np.frombuffer(b, np.uint8)
+        lens[i] = len(b)
+    return strs, lens
+
+
 def _wave_lanes(nblocks: int, lanes_per_device: int = 0) -> int:
     """Lanes per wave on one device: the blocks, bounded by
     lanes_per_device (0 = unbounded)."""
@@ -77,7 +154,7 @@ def _wave_lanes(nblocks: int, lanes_per_device: int = 0) -> int:
 
 
 def _encode_one_device(text: np.ndarray, tlen: np.ndarray, params: X3Params,
-                       caps: CodecCaps, device: torch.device):
+                       caps: CodecCaps, device: torch.device, seeds=None):
     """Encode one packed wave on ``device``: the CUDA kernel for a CUDA
     device, the plain PyTorch encoder for the CPU."""
     text_t = torch.from_numpy(text).to(device)
@@ -85,12 +162,12 @@ def _encode_one_device(text: np.ndarray, tlen: np.ndarray, params: X3Params,
     if device.type == "cuda":
         from x3tpu_torch.vm import driver
 
-        return driver.encode_blocks_cuda(text_t, tlen_t, params, caps)
-    return codec.encode_blocks_chunked(text_t, tlen_t, params, caps)
+        return driver.encode_blocks_cuda(text_t, tlen_t, params, caps, seeds)
+    return codec.encode_blocks_chunked(text_t, tlen_t, params, caps, seeds)
 
 
 def _decode_one_device(words: np.ndarray, byte_lens: np.ndarray,
-                       caps: CodecCaps, device: torch.device):
+                       caps: CodecCaps, device: torch.device, seeds=None):
     """Decode one packed wave (``words`` u32 [L, IW]) on ``device``: the
     CUDA kernel for a CUDA device, the plain PyTorch decoder for the
     CPU."""
@@ -99,9 +176,10 @@ def _decode_one_device(words: np.ndarray, byte_lens: np.ndarray,
 
         return driver.decode_blocks_cuda(
             torch.from_numpy(words.view(np.int32)).to(device),
-            torch.from_numpy(byte_lens).to(device), caps)
+            torch.from_numpy(byte_lens).to(device), caps, seeds)
     return codec.decode_blocks_chunked(torch.from_numpy(words.astype(np.int64)),
-                                       torch.from_numpy(byte_lens), caps)
+                                       torch.from_numpy(byte_lens), caps,
+                                       seeds)
 
 
 def encode_wave(
@@ -109,10 +187,13 @@ def encode_wave(
     params: X3Params,
     caps: CodecCaps,
     device="cuda",
+    seeds=None,
 ) -> RunResult:
     """Encode one wave of blocks with capacity auto-retry: any lane
     overflow re-runs the wave at doubled capacities, up to MAX_RETRIES
-    times (the output stays the exact reference-format stream)."""
+    times (the output stays the exact reference-format stream).  Every
+    lane starts from the dictionary ``seeds`` (strs u8 [K, 32], lens i32
+    [K]; :func:`seeds_to_arrays`) where given."""
     dev = resolve_device(device)
     nblocks = len(blocks_in)
     lanes = _wave_lanes(nblocks)
@@ -120,7 +201,7 @@ def encode_wave(
     for attempt in range(MAX_RETRIES + 1):
         text, tlen = codec.pack_blocks(padded, params, caps)
         words, byte_lens, counts, sizes, overflow = _encode_one_device(
-            text, tlen, params, caps, dev)
+            text, tlen, params, caps, dev, seeds)
         try:
             codec._check_overflow(overflow)
             break
@@ -146,13 +227,19 @@ def decode_wave(
     orig_lens: Sequence[Optional[int]],
     caps: CodecCaps,
     device="cuda",
+    seeds=None,
 ) -> RunResult:
     """Decode one wave of streams with capacity auto-retry: an output
     overflow doubles ``block_bytes``, any overflow doubles the state caps,
-    up to MAX_RETRIES times.  A block whose decoded length is not its
-    ``orig_lens`` entry (None: any length) raises ValueError."""
+    up to MAX_RETRIES times.  ``seeds`` must be the encoder's.  A stream
+    shorter than the shortest valid one (MIN_STREAM bytes), a corrupt
+    stream, and a block whose decoded length is not its ``orig_lens`` entry
+    (None: any length) raise ValueError."""
     dev = resolve_device(device)
     nblocks = len(payloads)
+    if any(len(s) < MIN_STREAM for s in payloads):
+        raise ValueError(f"malformed stream: shorter than {MIN_STREAM} "
+                         f"bytes")
     iw = max(1, max((len(s) + 3) // 4 for s in payloads))
     words = np.zeros((nblocks, iw), np.uint32)
     byte_lens = np.zeros((nblocks,), np.int32)
@@ -162,7 +249,7 @@ def decode_wave(
         byte_lens[i] = len(s)
     for attempt in range(MAX_RETRIES + 1):
         out, out_lens, counts, sizes, overflow = _decode_one_device(
-            words, byte_lens, caps, dev)
+            words, byte_lens, caps, dev, seeds)
         try:
             codec._check_overflow(overflow)
             break
@@ -194,12 +281,24 @@ def compress(
     block_bytes: Optional[int] = None,
     caps: Optional[CodecCaps] = None,
     stats_out: Optional[list] = None,
+    dict_seed: bool = False,
+    seed_k: int = 256,
+    seed_sample: int = 64 * 1024,
+    journal_path: Optional[str] = None,
     lanes_per_device: int = 32,
     device="cuda",
 ) -> bytes:
     """Compress ``data``.  Single block -> raw reference-format stream;
     multiple blocks -> X3TC container with per-block reference-format
-    payloads (``x3tpu_torch.parallel.blocks``)."""
+    payloads (``x3tpu_torch.parallel.blocks``).
+
+    ``dict_seed`` (x3tpu's extension, no reference counterpart) trains a
+    seed dictionary of at most ``seed_k`` fragments on a strided sample of
+    ``seed_sample`` bytes (the head of each block) and starts every block
+    from it; the seeds travel in the container, so a seeded output is
+    always one.  A single block is never seeded.  ``journal_path`` keeps a
+    :class:`WaveJournal` there: a run of the same job resumes after the
+    waves it records, and the file is removed on success."""
     if block_bytes is None:
         block_bytes = max(len(data), 1)
     parts = blk.split_blocks(data, block_bytes)
@@ -209,21 +308,63 @@ def compress(
             window=params.window,
         )
     wave = _wave_lanes(len(parts), lanes_per_device)
+    journal = None
+    if journal_path is not None:
+        # the wave width is in the fingerprint: waves recorded at another
+        # width hold other blocks; the port has no warm start (False)
+        fp = hashlib.sha256(
+            repr((params, block_bytes, dict_seed, seed_k, len(data), wave,
+                  False)).encode() + data[:4096] + data[-4096:]
+        ).hexdigest()
+        journal = WaveJournal(journal_path, fp)
+
+    seed_bytes: List[bytes] = []
+    seeds = None
+    if dict_seed and len(parts) > 1:
+        if journal is not None and journal.seed_bytes is not None:
+            seed_bytes = journal.seed_bytes
+        else:
+            from x3tpu_torch import host
+
+            # a strided sample, one slice a block, usage-ranked: a head-only
+            # sample over-fits the input's first file
+            # (x3tpu/parallel/runtime.py:591-598)
+            per = max(seed_sample // len(parts), 1)
+            sample = b"".join(p[:per] for p in parts)
+            strs, lens = host.train_seeds(
+                sample, params, min(seed_k, caps.dict_cap // 2))
+            seed_bytes = [strs[i, : lens[i]].tobytes()
+                          for i in range(len(lens))]
+            if journal is not None:
+                journal.record_seeds(seed_bytes)
+        if seed_bytes:
+            seeds = seeds_to_arrays(seed_bytes)
     all_payloads: List[bytes] = []
     all_stats = CodecStats.zero()
     for i in range(0, len(parts), wave):
-        res = encode_wave(parts[i : i + wave], params, caps, device=device)
+        widx = i // wave
+        if journal is not None and widx in journal.done:
+            done_payloads, done_stats = journal.done[widx]
+            all_payloads.extend(done_payloads)
+            all_stats = all_stats.merge(done_stats)
+            continue
+        res = encode_wave(parts[i : i + wave], params, caps, device=device,
+                          seeds=seeds)
+        if journal is not None:
+            journal.record(widx, res.payloads, res.stats)
         all_payloads.extend(res.payloads)
         all_stats = all_stats.merge(res.stats)
     if stats_out is not None:
         stats_out.append(all_stats)
-    if (len(all_payloads) == 1
+    if journal is not None:
+        journal.finish()
+    if (len(all_payloads) == 1 and not seed_bytes
             # a raw stream that begins with the container magic would be
             # misread as a container; wrap it
             and not blk.is_container(all_payloads[0])):
         return all_payloads[0]
     return blk.pack_container(all_payloads, [len(p) for p in parts],
-                              block_bytes)
+                              block_bytes, seeds=seed_bytes)
 
 
 def decompress(
@@ -234,12 +375,16 @@ def decompress(
     lanes_per_device: int = 32,
     device="cuda",
 ) -> bytes:
-    """Decompress a raw reference-format stream or an X3TC container.  The
-    stream is self-describing: no parameter shapes decoding.  A raw
-    stream's output size is not recorded, so its buffer starts from a 64:1
-    guess (``max_output`` overrides it) and grows on overflow."""
+    """Decompress a raw reference-format stream or an X3TC container (its
+    dictionary seeds included).  The stream is self-describing: no
+    parameter shapes decoding.  A raw stream's output size is not
+    recorded, so its buffer starts from a 64:1 guess (``max_output``
+    overrides it) and grows on overflow.  A malformed stream raises
+    ValueError."""
     if blk.is_container(data):
-        payloads, orig_lens, block_bytes = blk.unpack_container(data)
+        payloads, orig_lens, block_bytes, seed_bytes = blk.unpack_container(
+            data)
+        seeds = seeds_to_arrays(seed_bytes) if seed_bytes else None
         caps = caps or caps_for_block(max(block_bytes, 1024))
         if caps.block_bytes < block_bytes:
             caps = dataclasses.replace(caps, block_bytes=block_bytes)
@@ -248,7 +393,7 @@ def decompress(
         wave = _wave_lanes(len(payloads), lanes_per_device)
         for i in range(0, len(payloads), wave):
             res = decode_wave(payloads[i : i + wave], orig_lens[i : i + wave],
-                              caps, device=device)
+                              caps, device=device, seeds=seeds)
             out_parts.extend(res.payloads)
             all_stats = all_stats.merge(res.stats)
         if stats_out is not None:

@@ -44,6 +44,7 @@ NVCC_FLAGS = (
 
 # per-lane flag bits written by the kernel (x3_core.cuh OF_*)
 OF_DICT, OF_CTX0, OF_CTX1, OF_PAIRS, OF_OUT, OF_STEPS = 1, 2, 4, 8, 16, 32
+OF_CORRUPT = 64
 
 # shared memory of one CTA (x3_core.cuh): what a block may use on the card,
 # and the most K1's static part takes; the plan's planes get the rest
@@ -152,8 +153,10 @@ def _bind_encoder(lib: ctypes.CDLL, phases: bool = False) -> None:
     i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     lib.x3_scratch_words.restype = ll
     lib.x3_scratch_words.argtypes = [i] * 6
+    lib.x3_dict_layout.restype = None
+    lib.x3_dict_layout.argtypes = [i] * 6 + [p]
     lib.x3_encode.restype = i
-    lib.x3_encode.argtypes = ([p, p, i, ll] + [i] * 12 + [ctypes.c_uint]
+    lib.x3_encode.argtypes = ([p, p, i, ll] + [i] * 12 + [ctypes.c_uint, i]
                               + [p] * (8 if phases else 7))
     lib.x3_encoder_info.restype = i
     lib.x3_encoder_info.argtypes = [p]
@@ -164,7 +167,7 @@ def _bind_decoder(lib: ctypes.CDLL, phases: bool = False) -> None:
     -DX3_DEC_PHASES, whose x3_decode takes one more pointer)."""
     i, p = ctypes.c_int, ctypes.c_void_p
     lib.x3_decode.restype = i
-    lib.x3_decode.argtypes = [p, p] + [i] * 9 + [p] * (8 if phases else 7)
+    lib.x3_decode.argtypes = [p, p] + [i] * 10 + [p] * (8 if phases else 7)
     lib.x3_decoder_info.restype = i
     lib.x3_decoder_info.argtypes = [p]
 
@@ -210,6 +213,58 @@ def scratch_words(caps: CodecCaps) -> int:
         caps.ctx0_items_cap, caps.ctx_small_cap, caps.ctx_promo_rows)
 
 
+# the dictionary planes a seeded start writes, in x3_dict_layout's order
+DICT_PLANES = ("strs", "lens", "rank_of", "tag_of", "ix")
+
+
+def dict_layout(caps: CodecCaps, lib: Optional[ctypes.CDLL] = None,
+                fn: str = "x3_dict_layout") -> Dict[str, int]:
+    """The dictionary planes' offsets in a lane's scratch, in int32 words
+    (``lib``'s ``fn``: the kernels' layout query by default; the CPU tests
+    pass the host build's)."""
+    out = (ctypes.c_longlong * len(DICT_PLANES))()
+    getattr(lib or _load()["encoder"], fn)(
+        caps.dict_cap, caps.pair_cap, caps.ctx_items_cap,
+        caps.ctx0_items_cap, caps.ctx_small_cap, caps.ctx_promo_rows, out)
+    return dict(zip(DICT_PLANES, out))
+
+
+def seed_scratch(scratch: torch.Tensor, offsets: Dict[str, int], seeds,
+                 cumulative: bool) -> None:
+    """Write the K dictionary ``seeds`` (strs u8 [K, 32], lens i32 [K])
+    into every lane of ``scratch`` (i32 [L, words], zeroed) at ``offsets``
+    (:func:`dict_layout`), as x3_core.cuh seed_dict does: the strings and
+    lengths at tags 0..K-1, rank_of = tag_of = 0..K-1, and the index model
+    over the first K entries, freq 1 a seed for K1 or, ``cumulative``,
+    their inclusive sum 1..K for K2 (x3tpu/vm/driver.py _seed_dict_arrays).
+    One pass serves both kernels, which share the layout."""
+    k = int(seeds[0].shape[0])
+    dev = scratch.device
+    strs = torch.as_tensor(seeds[0], dtype=torch.uint8).contiguous()
+    words = strs.view(torch.int32).reshape(-1).to(dev)   # K x 8 LE words
+    ii = torch.arange(k, dtype=torch.int32, device=dev)
+    planes = {
+        "strs": words,
+        "lens": torch.as_tensor(seeds[1]).to(device=dev, dtype=torch.int32),
+        "rank_of": ii, "tag_of": ii,
+        "ix": ii + 1 if cumulative else torch.ones_like(ii),
+    }
+    for name, vals in planes.items():
+        at = offsets[name]
+        scratch[:, at : at + vals.numel()] = vals
+
+
+def _seeded_scratch(lanes: int, caps: CodecCaps, dev, seeds,
+                    cumulative: bool):
+    """A wave's zeroed scratch with the seeds written in, and K."""
+    k = codec.check_seeds(seeds, caps)
+    scratch = torch.zeros((lanes, scratch_words(caps)), dtype=torch.int32,
+                          device=dev)
+    if k:
+        seed_scratch(scratch, dict_layout(caps), seeds, cumulative)
+    return scratch, k
+
+
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor")
@@ -221,18 +276,20 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
 
 
 def encode_blocks_cuda(text: torch.Tensor, tlen: torch.Tensor,
-                       params: X3Params, caps: CodecCaps):
+                       params: X3Params, caps: CodecCaps, seeds=None):
     """Encode L blocks with kernel K1: ``text`` u8 [L, TB] from
-    ``codec.pack_blocks`` and ``tlen`` i32 [L], both on one CUDA device.
-    Every lane's state lives in a zeroed scratch tensor allocated here and,
-    for the planes :func:`smem_plan` picks, in the CTA's shared memory, so
-    new capacities only reallocate: the kernel takes them at run time."""
-    return _encode_with(text, tlen, params, caps)
+    ``codec.pack_blocks`` and ``tlen`` i32 [L], both on one CUDA device,
+    every lane from the dictionary ``seeds`` (strs u8 [K, 32], lens i32
+    [K]) where given.  Every lane's state lives in a zeroed scratch tensor
+    allocated here (with the seeds written in) and, for the planes
+    :func:`smem_plan` picks, in the CTA's shared memory, so new capacities
+    only reallocate: the kernel takes them at run time."""
+    return _encode_with(text, tlen, params, caps, seeds=seeds)
 
 
 def _encode_with(text: torch.Tensor, tlen: torch.Tensor, params: X3Params,
                  caps: CodecCaps, lib: Optional[ctypes.CDLL] = None,
-                 phases: Optional[torch.Tensor] = None):
+                 phases: Optional[torch.Tensor] = None, seeds=None):
     """:func:`encode_blocks_cuda` through ``lib`` (default: the main
     path's); ``phases`` (i64 [L, slots]) only with a library built with
     -DX3_PHASES (tools/k1_phases.py)."""
@@ -247,8 +304,7 @@ def _encode_with(text: torch.Tensor, tlen: torch.Tensor, params: X3Params,
     lib = lib or _load()["encoder"]
     dev = text.device
     with torch.cuda.device(dev):
-        scratch = torch.zeros((lanes, scratch_words(caps)), dtype=torch.int32,
-                              device=dev)
+        scratch, k = _seeded_scratch(lanes, caps, dev, seeds, False)
         words = torch.zeros((lanes, caps.out_words), dtype=torch.int32,
                             device=dev)
         byte_lens = torch.empty((lanes,), dtype=torch.int32, device=dev)
@@ -263,7 +319,7 @@ def _encode_with(text: torch.Tensor, tlen: torch.Tensor, params: X3Params,
                 params.magic_factor2, int(params.nl_remap), caps.dict_cap,
                 caps.pair_cap, caps.ctx_items_cap, caps.ctx0_items_cap,
                 caps.ctx_small_cap, caps.ctx_promo_rows, caps.out_words,
-                smem_plan(params, caps).mask, scratch.data_ptr(),
+                smem_plan(params, caps).mask, k, scratch.data_ptr(),
                 words.data_ptr(), byte_lens.data_ptr(), counts.data_ptr(),
                 sizes.data_ptr(), flags.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream, *extra)
@@ -285,19 +341,21 @@ def _overflow(flags: torch.Tensor) -> codec.Overflow:
 
 
 def decode_blocks_cuda(words: torch.Tensor, byte_lens: torch.Tensor,
-                       caps: CodecCaps):
+                       caps: CodecCaps, seeds=None):
     """Decode L streams with kernel K2: ``words`` i32 [L, IW] (the streams'
     little-endian u32 words, bit for bit) and ``byte_lens`` i32 [L], both
-    on one CUDA device.  Every lane's state lives in a zeroed scratch
-    tensor allocated here.  A lane still decoding after block_bytes + 1
-    events raises ValueError (a valid stream emits a byte with every event
-    but EOF); nothing hangs on a corrupt stream."""
-    return _decode_with(words, byte_lens, caps)
+    on one CUDA device, every lane from the encoder's dictionary ``seeds``
+    where given.  Every lane's state lives in a zeroed scratch tensor
+    allocated here (with the seeds written in).  A corrupt stream (a
+    symbol value past its model's total) and a lane still decoding after
+    block_bytes + 1 events (a valid stream emits a byte with every event
+    but EOF) raise ValueError; nothing hangs on a corrupt stream."""
+    return _decode_with(words, byte_lens, caps, seeds=seeds)
 
 
 def _decode_with(words: torch.Tensor, byte_lens: torch.Tensor,
                  caps: CodecCaps, lib: Optional[ctypes.CDLL] = None,
-                 phases: Optional[torch.Tensor] = None):
+                 phases: Optional[torch.Tensor] = None, seeds=None):
     """:func:`decode_blocks_cuda` through ``lib`` (default: the main
     path's); ``phases`` (i64 [L, slots]) only with a library built with
     -DX3_DEC_PHASES (tools/k2_phases.py)."""
@@ -312,8 +370,7 @@ def _decode_with(words: torch.Tensor, byte_lens: torch.Tensor,
     lib = lib or _load()["decoder"]
     dev = words.device
     with torch.cuda.device(dev):
-        scratch = torch.zeros((lanes, scratch_words(caps)), dtype=torch.int32,
-                              device=dev)
+        scratch, k = _seeded_scratch(lanes, caps, dev, seeds, True)
         out = torch.zeros((lanes, caps.block_bytes), dtype=torch.uint8,
                           device=dev)
         out_lens = torch.empty((lanes,), dtype=torch.int32, device=dev)
@@ -326,13 +383,18 @@ def _decode_with(words: torch.Tensor, byte_lens: torch.Tensor,
                 words.data_ptr(), byte_lens.data_ptr(), lanes, iw,
                 caps.block_bytes, caps.dict_cap, caps.pair_cap,
                 caps.ctx_items_cap, caps.ctx0_items_cap, caps.ctx_small_cap,
-                caps.ctx_promo_rows, scratch.data_ptr(), out.data_ptr(),
+                caps.ctx_promo_rows, k, scratch.data_ptr(), out.data_ptr(),
                 out_lens.data_ptr(), counts.data_ptr(), sizes.data_ptr(),
                 flags.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
                 *extra)
             if rc != 0:
                 raise RuntimeError(f"x3_decode launch failed: cudaError {rc}")
             LAUNCHES["decoder"] += 1
+        # as the plain decoder: a corrupt symbol on a lane none of whose
+        # capacities overflowed (an overflow is retried), then the bound
+        state = OF_DICT | OF_CTX0 | OF_CTX1 | OF_PAIRS | OF_OUT
+        if bool((((flags & OF_CORRUPT) != 0) & ((flags & state) == 0)).any()):
+            raise codec.corrupt()
         if bool((flags & OF_STEPS).any()):
             raise codec.malformed(caps.block_bytes + 1)
     return (out, out_lens.to(torch.int64), counts.to(torch.int64), sizes,
