@@ -10,8 +10,8 @@ exit at the first failure:
 2. the encoder kernel K1 against its plain PyTorch version on the card:
    the golden inputs of each golden paramset (the 20 golden streams byte
    for byte), small capacities where every overflow flag fires, magic
-   factor 2, and a dictionary too large for shared memory (dict_cap 8192:
-   K1 keeps its strings in global memory);
+   factor 2, and a large dictionary (dict_cap 8192: K1 keeps every plane
+   in global memory);
 3. the decoder kernel K2 against its plain PyTorch version on the card:
    the 20 golden streams (each must give its input) and K1's tiny-caps
    streams, where the state flags fire while decoding;
@@ -21,7 +21,7 @@ exit at the first failure:
 5. seeded kernels: 256 dictionary seeds trained by the port's trainer on
    a strided sample of the corpus; K1 against the plain encoder at 8
    lanes of 4 KiB with every lane seeded, with the default shared-memory
-   plan and at dict_cap 8192 (the strings in global memory), and K2
+   plan and at dict_cap 8192 (every plane in global memory), and K2
    against the plain decoder on those streams;
 6. the raw path: one 16 KiB block compressed to a raw stream and
    decompressed on the card, and the golden streams over 2 KiB decoded
@@ -41,7 +41,30 @@ exit at the first failure:
    a 16 KiB file as one raw stream, each to the same bytes;
 9. times: compress and decompress (unseeded and seeded), the seed
    trainer on the host, each kernel alone, and both plain versions
-   against the kernels at 32 lanes of 4 KiB.
+   against the kernels at 32 lanes of 4 KiB;
+10. MB wave: 32 x 1 MiB of the MB corpus (x3tpu_torch.utils.corpus) at
+   -t 15 -w 8 and caps_for_block(1 MiB) through compress and decompress:
+   every stream equals the reference codec's (its length and sha256 in
+   x3tpu_torch/testdata/mb_streams.json, written by tools/mb_oracle.py),
+   and the blocks come back; one more encode and decode through the
+   wrappers, timed, with equal streams;
+11. MB 16 MiB caps: the first 8 of those blocks under
+   caps_for_block(16 MiB), the same reference streams;
+12. window 32 KiB: 32 x 256 KiB at -w 32 (dict 6144, 640 items) through
+   compress (whose attempts at 640 and 1280 items overflow a context row
+   and are retried) and decompress, the reference streams and back;
+13. wave split: the MB wave with a device-memory budget of 8 lanes, 4
+   launches each way, the one-launch wave's streams;
+14. MB retry: the MB wave from dict_cap 8192, which some of its blocks
+   outgrow (up to 9 706 entries), retried at caps.scaled(2), the
+   reference streams;
+15. MB command line: ``python3 -m x3tpu_torch`` on one 4 MiB file (one
+   raw stream, K1 at dict 24576, retried once: more than 4096 ctx0 rows
+   outgrow the small pool, and the retry doubles the pool of promoted
+   rows; the decode at a raw stream's 64:1 guess, retried once) and on 32
+   MiB in 1 MiB blocks (a container of 32 lanes), each the reference
+   stream(s) and back byte for byte; then the 4 MiB lane alone through
+   each kernel at the caps where it fits, timed.
 
 The last line is one JSON object, {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -61,6 +84,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 BLOCK = 16 * 1024
 PLAIN_BLOCK = 4 * 1024              # the plain versions' depth
+PLAIN_KIB = f"{PLAIN_BLOCK // 1024} KiB"
 SEED_LANES = 8                      # lanes of the seeded kernels' check
 SIZE_RTOL, SIZE_ATOL = 1e-5, 1e-3   # f32 size estimates (tests/test_vm.py)
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM peak device-memory rate
@@ -115,6 +139,7 @@ def main() -> int:
     from x3tpu_torch.config import CodecCaps, X3Params
     from x3tpu_torch.parallel import blocks as blk
     from x3tpu_torch.parallel import runtime
+    from x3tpu_torch.utils import corpus as mbc
     from x3tpu_torch.vm import driver
 
     phase("environment", t0)
@@ -275,8 +300,8 @@ def main() -> int:
     against_plain("magic_factor2=2",
                   [text_small, inputs[names.index("c_source")][:PLAIN_BLOCK]],
                   X3Params(magic_factor2=2), small)
-    # K1's shared-memory plan leaves the dictionary strings in global
-    # memory at dict_cap 8192; the streams stay the golden ones
+    # K1's shared-memory plan leaves the dictionary (and every other plane)
+    # in global memory at dict_cap 8192; the streams stay the golden ones
     wide = dataclasses.replace(small, dict_cap=8192)
     plan = driver.smem_plan(paramsets["t15_w8"], wide)
     if "strs" in plan.offsets:
@@ -376,13 +401,13 @@ def main() -> int:
           flush=True)
     seed_blocks = [p[:PLAIN_BLOCK] for p in
                    blk.split_blocks(data[32], BLOCK)[:SEED_LANES]]
-    seeded_out, _, _ = against_plain(
-        f"seeded K1 {SEED_LANES} x 4 KiB", seed_blocks, params, caps, seeds)
+    seeded_out, _, _ = against_plain(f"seeded K1 {SEED_LANES} x {PLAIN_KIB}",
+                                     seed_blocks, params, caps, seeds)
     wide_caps = dataclasses.replace(caps, dict_cap=8192)
     if "strs" in driver.smem_plan(params, wide_caps).offsets:
         raise AssertionError("dict_cap 8192: the plan holds the strings")
     wide_out, _, _ = against_plain(
-        f"seeded K1 {SEED_LANES} x 4 KiB, dictionary in global memory",
+        f"seeded K1 {SEED_LANES} x {PLAIN_KIB}, dictionary in global memory",
         seed_blocks, params, wide_caps, seeds)
     for got in (seeded_out, wide_out):
         if got[4].any_flag().any():
@@ -390,8 +415,8 @@ def main() -> int:
     if not torch.equal(seeded_out[0], wide_out[0]):
         raise AssertionError("seeded K1: the streams depend on dict_cap")
     words, byte_lens = as_i32(seeded_out[0]), seeded_out[1].to(torch.int32)
-    dec, _, _ = against_plain_dec(f"seeded K2 {SEED_LANES} x 4 KiB", words,
-                                  byte_lens, caps, seeds)
+    dec, _, _ = against_plain_dec(f"seeded K2 {SEED_LANES} x {PLAIN_KIB}",
+                                  words, byte_lens, caps, seeds)
     for i, b in enumerate(seed_blocks):
         if dec[0][i, : dec[1][i]].cpu().numpy().tobytes() != b:
             raise AssertionError(f"seeded K2: block {i} does not round trip")
@@ -401,7 +426,7 @@ def main() -> int:
         *(torch.from_numpy(a).to(dev)
           for a in codec.pack_blocks(seed_blocks, params, caps)),
         params, caps)
-    print(f"seeded kernels: {SEED_LANES} x 4 KiB in "
+    print(f"seeded kernels: {SEED_LANES} x {PLAIN_KIB} in "
           f"{int(seeded_out[1].sum())} stream bytes seeded, "
           f"{int(unseeded[1].sum())} unseeded; hits by index rank "
           f"{int(seeded_out[2][:, 2].sum())} seeded, "
@@ -661,15 +686,322 @@ def main() -> int:
     # the plain versions at 32 lanes of 4 KiB (a slice of each main-path
     # block, caps_for_block(16 KiB)), held against the kernels
     plain_blocks = [p[:PLAIN_BLOCK] for p in blk.split_blocks(data[32], BLOCK)]
-    enc, k1_s, plain_enc_s = against_plain("plain shape 32 x 4 KiB",
+    enc, k1_s, plain_enc_s = against_plain(f"plain shape 32 x {PLAIN_KIB}",
                                            plain_blocks, params, caps)
     words, byte_lens = as_i32(enc[0]), enc[1].to(torch.int32)
-    dec, k2_s, plain_dec_s = against_plain_dec("plain shape 32 x 4 KiB",
-                                               words, byte_lens, caps)
+    dec, k2_s, plain_dec_s = against_plain_dec(
+        f"plain shape 32 x {PLAIN_KIB}", words, byte_lens, caps)
     for i, b in enumerate(plain_blocks):
         if dec[0][i, : dec[1][i]].cpu().numpy().tobytes() != b:
             raise AssertionError(f"plain shape: block {i} does not round trip")
     phase("times", t0)
+
+    # ------------------------------------------------- 10-15. MB blocks
+    # the MB corpus's streams against the reference codec's, recorded by
+    # tools/mb_oracle.py (the JAX package does not run here)
+    oracle = mbc.load_oracle()
+    mb = {"encoder": {}, "decoder": {}}   # numbers for the kernels line
+    mb_launches = {"encoder": 0, "decoder": 0}
+
+    def oracle_check(label, streams, name):
+        want = oracle[name]["streams"]
+        if len(streams) > len(want):
+            raise AssertionError(f"{label}: {len(streams)} streams, the "
+                                 f"reference has {len(want)}")
+        for i, (got, ref) in enumerate(zip(streams, want)):
+            if (len(got) != ref["len"]
+                    or hashlib.sha256(got).hexdigest() != ref["sha256"]):
+                raise AssertionError(f"{label}: stream {i} ({len(got)} B) is "
+                                     f"not the reference stream "
+                                     f"({ref['len']} B)")
+
+    def event_ms(fn):
+        """One call's device time (CUDA events) and its result."""
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    def counted(fn):
+        """fn's result, wall time and launches, the counts set to 0 just
+        before it."""
+        driver.LAUNCHES["encoder"] = driver.LAUNCHES["decoder"] = 0
+        out, wall = timed(fn)
+        return out, wall, dict(driver.LAUNCHES)
+
+    def lane_mib(c):
+        # the kernels' own layout; it raises where driver.layout differs
+        return driver.kernel_layout(c)[0] * 4 / 2**20
+
+    def time_wave(label, blocks, prm, c, streams=None):
+        """K1 then K2 on a wave through the wrappers, one call each timed
+        with CUDA events; K1's streams must be ``streams`` (where given)
+        and K2 must give the blocks back.  Returns the numbers."""
+        text, tlen = (torch.from_numpy(a).to(dev)
+                      for a in codec.pack_blocks(blocks, prm, c))
+        torch.cuda.reset_peak_memory_stats()
+        enc, k1 = event_ms(lambda: driver.encode_blocks_cuda(text, tlen, prm,
+                                                             c))
+        got = codec.streams_from_words(enc[0], enc[1], len(blocks))
+        if enc[4].any_flag().any() or (streams is not None
+                                       and got != streams):
+            raise AssertionError(f"{label}: K1's streams differ")
+        words, byte_lens = pack_streams(got)
+        dec, k2 = event_ms(lambda: driver.decode_blocks_cuda(words, byte_lens,
+                                                             c))
+        for i, b in enumerate(blocks):
+            if dec[0][i, : dec[1][i]].cpu().numpy().tobytes() != b:
+                raise AssertionError(f"{label}: K2 did not give block {i} "
+                                     f"back")
+        if not torch.equal(dec[2], enc[2]):
+            raise AssertionError(f"{label}: K2's event counts differ")
+        ev = int(enc[2].sum(1).max())
+        raw, packed = sum(map(len, blocks)), sum(map(len, got))
+        small_io = len(blocks) * (4 + 4 + 20 + 20 + 4)
+        row = {"k1_ms": k1, "k2_ms": k2, "events": ev,
+               "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+               "scratch_mib": lane_mib(c),
+               "bound_ms": bound_ms(raw + packed + small_io)}
+        print(f"{label}: K1 {k1:.1f} ms, K2 {k2:.1f} ms; {ev} events in the "
+              f"slowest lane: K1 {k1 * 1e6 / ev:.1f} ns, K2 "
+              f"{k2 * 1e6 / ev:.1f} ns an event; scratch "
+              f"{row['scratch_mib']:.2f} MiB a lane, peak device memory "
+              f"{row['peak_mib']:.0f} MiB; bound {row['bound_ms']:.5f} ms",
+              flush=True)
+        return row, got
+
+    # ---- 10. MB wave: 32 x 1 MiB at -t 15 -w 8, caps_for_block(1 MiB)
+    t0 = time.perf_counter()
+    mb_caps = runtime.caps_for_block(1 << 20)
+    mb_data = mbc.mb_corpus(32 << 20)
+    mb_blocks = mbc.mb_blocks("wave_1m")
+    blob, enc_s, n = counted(lambda: x3tpu_torch.compress(
+        mb_data, block_bytes=1 << 20, device="cuda"))
+    mb_payloads, orig_lens, _, _ = blk.unpack_container(blob)
+    if n != {"encoder": 1, "decoder": 0} or len(mb_payloads) != 32:
+        raise AssertionError(f"MB wave: {len(mb_payloads)} streams in "
+                             f"launches {n}")
+    oracle_check("MB wave", mb_payloads, "wave_1m")
+    back, dec_s, n2 = counted(lambda: x3tpu_torch.decompress(blob,
+                                                             device="cuda"))
+    if back != mb_data or n2 != {"encoder": 0, "decoder": 1}:
+        raise AssertionError(f"MB wave: decompress gave {len(back)} B in "
+                             f"launches {n2}")
+    for k in mb_launches:
+        mb_launches[k] += n[k] + n2[k]
+    print(f"MB wave: 32 x 1 MiB equal the reference streams and come back "
+          f"(compress {enc_s:.3f} s, decompress {dec_s:.3f} s, ratio "
+          f"{len(blob) / len(mb_data):.4f}); caps {mb_caps}", flush=True)
+    row, _ = time_wave("MB wave, once more", mb_blocks, params, mb_caps,
+                       mb_payloads)
+    zeros, zero_ms = event_ms(lambda: torch.zeros(
+        (32, driver.scratch_words(mb_caps)), dtype=torch.int32, device=dev))
+    del zeros
+    print(f"MB wave: zeroing 32 lanes' scratch ({32 * row['scratch_mib']:.0f} "
+          f"MiB) takes {zero_ms:.3f} ms", flush=True)
+    for kernel, key in (("encoder", "k1_ms"), ("decoder", "k2_ms")):
+        mb[kernel].update({
+            "ms_mb": row[key],
+            "ns_per_event_mb": row[key] * 1e6 / row["events"],
+            "events_slowest_lane_mb": row["events"],
+            "bound_ms_mb": row["bound_ms"],
+            "scratch_mib_mb": row["scratch_mib"],
+            "peak_mib_mb": row["peak_mib"], "zero_ms_mb": zero_ms,
+            "wall_s_mb": enc_s if kernel == "encoder" else dec_s})
+    phase("MB wave", t0)
+
+    # ---- 11. the first 8 blocks under caps_for_block(16 MiB): caps never
+    # change a stream
+    t0 = time.perf_counter()
+    caps16 = runtime.caps_for_block(16 << 20)
+    res, wall, n = counted(lambda: runtime.encode_wave(
+        mb_blocks[:8], params, caps16, device="cuda"))
+    if n["encoder"] != 1:
+        raise AssertionError(f"MB 16 MiB caps: launches {n}")
+    oracle_check("MB 16 MiB caps", res.payloads, "wave_1m")
+    print(f"MB 16 MiB caps: 8 x 1 MiB equal the reference streams "
+          f"(encode_wave {wall:.3f} s); caps {caps16}", flush=True)
+    row, _ = time_wave("MB 16 MiB caps", mb_blocks[:8], params, caps16,
+                       res.payloads)
+    mb["encoder"]["ms_mb_16m_caps"] = row["k1_ms"]
+    mb["decoder"]["ms_mb_16m_caps"] = row["k2_ms"]
+    phase("MB 16 MiB caps", t0)
+
+    # ---- 12. 32 x 256 KiB at -w 32 (dict 6144, 640 items a row)
+    t0 = time.perf_counter()
+    w32 = X3Params(window=32 * 1024)
+    w32_data = mbc.mb_corpus(8 << 20)
+    w32_blocks = mbc.mb_blocks("wave_w32")
+    blob, enc_s, n = counted(lambda: x3tpu_torch.compress(
+        w32_data, w32, block_bytes=256 << 10, device="cuda"))
+    w32_payloads = blk.unpack_container(blob)[0]
+    oracle_check("window 32 KiB", w32_payloads, "wave_w32")
+    back, dec_s, n2 = counted(lambda: x3tpu_torch.decompress(blob,
+                                                             device="cuda"))
+    if back != w32_data or n["encoder"] < 1 or n2["decoder"] < 1:
+        raise AssertionError(f"window 32 KiB: decompress gave {len(back)} B "
+                             f"(launches {n}, {n2})")
+    for k in mb_launches:
+        mb_launches[k] += n[k] + n2[k]
+    # the attempts compress made, one by one: a ctx0 row outgrows 640 items
+    w32_caps = runtime.caps_for_block(256 << 10, window=w32.window)
+    text, tlen = (torch.from_numpy(a).to(dev)
+                  for a in codec.pack_blocks(w32_blocks, w32, w32_caps))
+    attempts = []
+    for _ in range(n["encoder"] - 1):
+        enc, ms = event_ms(lambda: driver.encode_blocks_cuda(
+            text, tlen, w32, w32_caps))
+        fired = [f for f in enc[4]._fields if bool(getattr(enc[4], f).any())]
+        attempts.append((ms, fired))
+        if not fired:
+            raise AssertionError("window 32 KiB: compress retried a wave "
+                                 "that does not overflow")
+        w32_caps = runtime._retry_caps(w32_caps, fired, "out_words_factor")
+    print(f"window 32 KiB: 32 x 256 KiB equal the reference streams and come "
+          f"back (compress {enc_s:.3f} s in {n['encoder']} launches, "
+          f"decompress {dec_s:.3f} s); attempts before the last: "
+          f"{[(round(ms, 1), f) for ms, f in attempts]}", flush=True)
+    row, _ = time_wave("window 32 KiB", w32_blocks, w32, w32_caps,
+                       w32_payloads)
+    for kernel, key in (("encoder", "k1_ms"), ("decoder", "k2_ms")):
+        mb[kernel].update({
+            "ms_w32": row[key], "ns_per_event_w32": row[key] * 1e6
+            / row["events"], "events_slowest_lane_w32": row["events"],
+            "bound_ms_w32": row["bound_ms"], "caps_w32": str(w32_caps)})
+    mb["encoder"]["ms_w32_overflowing_attempts"] = [ms for ms, _ in attempts]
+    phase("window 32 KiB", t0)
+
+    # ---- 13. the MB wave in launches of 8 lanes (a budget of 8 lanes)
+    t0 = time.perf_counter()
+    budget = 8 * driver.encoder_lane_bytes(params, mb_caps)
+    res, enc_s, n = counted(lambda: runtime.encode_wave(
+        mb_blocks, params, mb_caps, device="cuda", mem_budget=budget))
+    if n["encoder"] != 4 or res.payloads != mb_payloads:
+        raise AssertionError(f"wave split: {n['encoder']} launches, streams "
+                             f"equal {res.payloads == mb_payloads}")
+    words, _ = pack_streams(mb_payloads)
+    dbudget = 8 * driver.decoder_lane_bytes(mb_caps, words.shape[1])
+    dres, dec_s, n2 = counted(lambda: runtime.decode_wave(
+        mb_payloads, [len(b) for b in mb_blocks], mb_caps, device="cuda",
+        mem_budget=dbudget))
+    if n2["decoder"] != 4 or dres.payloads != mb_blocks:
+        raise AssertionError(f"wave split: {n2['decoder']} K2 launches, "
+                             f"blocks equal {dres.payloads == mb_blocks}")
+    split_hash = hashlib.sha256(b"".join(res.payloads)).hexdigest()[:16]
+    one_hash = hashlib.sha256(b"".join(mb_payloads)).hexdigest()[:16]
+    print(f"wave split: {n['encoder']} K1 and {n2['decoder']} K2 launches "
+          f"of 8 lanes; streams hash {split_hash}, the one-launch wave's "
+          f"{one_hash}; encode_wave {enc_s:.3f} s, decode_wave "
+          f"{dec_s:.3f} s", flush=True)
+    mb["encoder"].update({"wall_s_mb_split": enc_s,
+                          "launches_mb_split": n["encoder"]})
+    mb["decoder"].update({"wall_s_mb_split": dec_s,
+                          "launches_mb_split": n2["decoder"]})
+    phase("wave split", t0)
+
+    # ---- 14. the MB wave from dict_cap 8192, which some blocks outgrow:
+    # the retry at caps.scaled(2) (dict 16384, 1 M pairs, 16384 items)
+    # gives the reference streams
+    t0 = time.perf_counter()
+    small_mb = dataclasses.replace(mb_caps, dict_cap=8192)
+    torch.cuda.reset_peak_memory_stats()
+    res, enc_s, n = counted(lambda: runtime.encode_wave(
+        mb_blocks, params, small_mb, device="cuda"))
+    if n["encoder"] != 2:
+        raise AssertionError(f"MB retry: {n['encoder']} launches, want 2")
+    oracle_check("MB retry", res.payloads, "wave_1m")
+    retry_mib = lane_mib(small_mb.scaled(2))
+    print(f"MB retry: dict_cap 8192 overflowed, the retry at "
+          f"{small_mb.scaled(2)} ({retry_mib:.2f} MiB a lane) gave the "
+          f"reference streams; encode_wave {enc_s:.3f} s, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB",
+          flush=True)
+    mb["encoder"].update({"wall_s_mb_retry": enc_s,
+                          "scratch_mib_mb_retry": retry_mib})
+    phase("MB retry", t0)
+
+    # ---- 15. the command line at real file sizes: one 4 MiB file (a raw
+    # stream) and 32 MiB in 1 MiB blocks (a container)
+    t0 = time.perf_counter()
+    cli_dir = ROOT / "build" / "chip_smoke_cli_mb"
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    # the CLI runs in processes of its own: hand them the memory this
+    # process's allocator still caches from the phases above (tens of GB)
+    torch.cuda.empty_cache()
+    cli_dir.mkdir(parents=True)
+    file_4m = mbc.mb_corpus(4 << 20)
+    for fname, (blob, flags) in {
+            "file_4m.bin": (file_4m, []),
+            "corpus_32m.bin": (mb_data, ["--block-size", "1024"])}.items():
+        src = cli_dir / fname
+        src.write_bytes(blob)
+        for argv in (["-z", *flags, str(src)], ["-d", "-f", f"{src}.x3"]):
+            r = subprocess.run([sys.executable, "-m", "x3tpu_torch", *argv],
+                               cwd=ROOT, capture_output=True, text=True,
+                               timeout=300)
+            if r.returncode != 0:
+                raise AssertionError(f"cli {argv}: exit {r.returncode}\n"
+                                     f"{r.stderr[-3000:]}")
+            print(f"cli {' '.join(argv[:-1])} {fname}:", flush=True)
+            for line in r.stderr.splitlines():
+                print(f"  {line}", flush=True)
+            if argv[0] == "-z":
+                packed = pathlib.Path(f"{src}.x3").read_bytes()
+                if flags:
+                    oracle_check(f"cli {fname}",
+                                 blk.unpack_container(packed)[0], "wave_1m")
+                else:
+                    oracle_check(f"cli {fname}", [packed], "file_4m")
+        if src.read_bytes() != blob:
+            raise AssertionError(f"cli {fname}: -d did not give the input "
+                                 f"back")
+        print(f"cli {fname}: {len(blob)} B round trip through {len(packed)} "
+              f"B, the reference stream{'s' if flags else ''}", flush=True)
+    shutil.rmtree(cli_dir)
+    # the 4 MiB file's lane alone: K1 at the caps of compress's second
+    # attempt (its first overflows the pool of promoted ctx0 rows), K2 from
+    # a raw decode's caps
+    file_caps = runtime._retry_caps(runtime.caps_for_block(4 << 20),
+                                    ("ctx0",), "out_words_factor")
+    text, tlen = (torch.from_numpy(a).to(dev)
+                  for a in codec.pack_blocks([file_4m], params, file_caps))
+    enc, k1 = event_ms(lambda: driver.encode_blocks_cuda(text, tlen, params,
+                                                         file_caps))
+    stream = codec.streams_from_words(enc[0], enc[1], 1)[0]
+    oracle_check("4 MiB file", [stream], "file_4m")
+    # K2 from a raw decode's caps, retried as decode_wave retries
+    file_raw = raw_caps(stream)
+    words, byte_lens = pack_streams([stream])
+    k2_attempts = []
+    for _ in range(runtime.MAX_RETRIES + 1):
+        dec, k2 = event_ms(lambda: driver.decode_blocks_cuda(
+            words, byte_lens, file_raw))
+        fired = [f for f in dec[4]._fields if bool(getattr(dec[4], f).any())]
+        if not fired:
+            break
+        k2_attempts.append((round(k2, 1), fired))
+        file_raw = runtime._retry_caps(file_raw, fired, "block_bytes")
+    if dec[0][0, : dec[1][0]].cpu().numpy().tobytes() != file_4m:
+        raise AssertionError("4 MiB file: K2 did not give it back")
+    ev = int(enc[2].sum())
+    print(f"4 MiB file: K1 {k1:.1f} ms at dict {file_caps.dict_cap}, "
+          f"items {file_caps.ctx_items_cap}, {file_caps.ctx_promo_rows} "
+          f"promoted rows; K2 {k2:.1f} ms at a raw "
+          f"decode's dict {file_raw.dict_cap}, items "
+          f"{file_raw.ctx_items_cap}, block {file_raw.block_bytes} "
+          f"({lane_mib(file_raw):.2f} MiB of scratch), after attempts "
+          f"{k2_attempts}; {ev} events: K1 {k1 * 1e6 / ev:.1f} ns, K2 "
+          f"{k2 * 1e6 / ev:.1f} ns an event", flush=True)
+    for kernel, ms in (("encoder", k1), ("decoder", k2)):
+        mb[kernel].update({"ms_file_4m": ms,
+                           "ns_per_event_file_4m": ms * 1e6 / ev})
+    mb["decoder"]["ms_file_4m_overflowing_attempts"] = [
+        ms for ms, _ in k2_attempts]
+    phase("MB command line", t0)
 
     k1_info = driver.encoder_info()
     k1_plan = driver.smem_plan(params, caps)
@@ -693,12 +1025,14 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": None,
             "shape": "32 x 16 KiB",
-            "plain_shape": "32 x 4 KiB",
+            "plain_shape": f"32 x {PLAIN_KIB}",
             "ms_at_plain_shape": k_small_s * 1e3,
             "ms_128_lanes": timing[128][k_ms],
             "ms_seeded": timing[32][k_ms + "_seeded"],
             "ms_seeded_128_lanes": timing[128][k_ms + "_seeded"],
             "bound_ms_128_lanes": bounds[128][kernel],
+            "launches_mb": mb_launches[kernel],
+            **mb[kernel],
         }
 
     k1_entry = kernel_entry("encoder", "x3tpu_torch/csrc/x3_encoder.cu",

@@ -56,8 +56,10 @@ def core():
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.x3h_encode.argtypes = ([p, p, i, ctypes.c_longlong] + [i] * 12
-                               + [ctypes.c_uint, p, p, i] + [p] * 5)
+                               + [ctypes.c_uint, p, p, i] + [p] * 6)
     lib.x3h_encode.restype = i
+    lib.x3h_scratch_words.argtypes = [i] * 6
+    lib.x3h_scratch_words.restype = ctypes.c_longlong
     lib.x3h_smem_layout.argtypes = ([i] * 6 + [ctypes.c_longlong, ctypes.c_uint]
                                     + [p])
     lib.x3h_smem_layout.restype = None
@@ -94,10 +96,11 @@ def _seed_args(seeds):
     return strs.ctypes.data, lens.ctypes.data, len(lens), (strs, lens)
 
 
-def _encode(lib, blocks, params, caps, placement, seeds=None):
+def _encode(lib, blocks, params, caps, placement, seeds=None, scratch=None):
     """The host core's (words, byte_lens, counts, sizes, flags) as arrays;
     every lane starts from ``seeds`` (strs u8 [K, 32], lens i32 [K]) where
-    given."""
+    given; the last lane's final scratch is copied into ``scratch`` (i32
+    [driver.scratch_words(caps)]) where given."""
     sp, lp, k, _keep = _seed_args(seeds)
     mask = driver.smem_plan(params, caps).mask if placement == "shared" else 0
     text, tlen = codec.pack_blocks(blocks, params, caps)
@@ -114,7 +117,8 @@ def _encode(lib, blocks, params, caps, placement, seeds=None):
         caps.pair_cap, caps.ctx_items_cap, caps.ctx0_items_cap,
         caps.ctx_small_cap, caps.ctx_promo_rows, caps.out_words, mask,
         sp, lp, k, words.ctypes.data, lens.ctypes.data, counts.ctypes.data,
-        sizes.ctypes.data, flags.ctypes.data)
+        sizes.ctypes.data, flags.ctypes.data,
+        None if scratch is None else scratch.ctypes.data)
     assert rc == 0
     return words, lens, counts, sizes, flags
 
@@ -204,13 +208,17 @@ def test_smem_plan_at_16k_holds_every_plane():
 
 
 def test_smem_plan_big_dictionary_stays_global():
-    """At dict_cap 8192 the dictionary strings (256 KiB) stay in global
-    memory; what fits still moves, within the budget."""
-    caps = dataclasses.replace(CAPS_16K, dict_cap=8192)
-    plan = driver.smem_plan(X3Params(), caps)
-    assert "strs" not in plan.offsets
-    assert "text" in plan.offsets and "lens" in plan.offsets
-    assert plan.nbytes <= SMEM_BUDGET
+    """Above driver.SMEM_DICT_MAX entries (dict_cap 2048 up, where
+    all-global measured faster) every plane stays in global memory: at
+    dict_cap 8192 and at the MB caps no plane moves, though some fit."""
+    for caps in (dataclasses.replace(CAPS_16K, dict_cap=8192),
+                 dataclasses.replace(CAPS_16K, dict_cap=2048),
+                 runtime.caps_for_block(1 << 20),
+                 runtime.caps_for_block(256 << 10, window=32768)):
+        plan = driver.smem_plan(X3Params(), caps)
+        assert plan.offsets == {} and plan.nbytes == 0 and plan.mask == 0
+    edge = dataclasses.replace(CAPS_16K, dict_cap=driver.SMEM_DICT_MAX)
+    assert "strs" in driver.smem_plan(X3Params(), edge).offsets
 
 
 @pytest.mark.parametrize("caps", [

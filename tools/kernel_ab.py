@@ -13,6 +13,16 @@ two trees), each in a process of its own that imports that tree's
 a hash of K1's words and lengths and one of K2's bytes, lengths, counts,
 sizes and flags (equal across trees whose outputs are).  One JSON line
 per run; a run that takes more than RUN_TIMEOUT seconds fails.
+
+    python3 tools/kernel_ab.py --plan [CASE ...]
+
+K1 of this tree with ``driver.smem_plan``'s shared-memory placement (as
+it packs the planes with no SMEM_DICT_MAX limit) and with every plane in
+global memory (mask 0), in turns (plan, global,
+global, plan), on 32 blocks of ``x3tpu_torch.utils.corpus.mb_corpus`` at
+each of PLAN_CASES' capacities (16 KiB to 1 MiB blocks, -w 8 and -w 32):
+one CUDA-event time a launch and a hash of the streams, which must agree
+(CASE: labels of PLAN_CASES to run; default all).
 """
 
 import hashlib
@@ -24,6 +34,79 @@ import sys
 
 LANES, BLOCK = (32, 128), 16 * 1024
 RUN_TIMEOUT = 300
+# --plan: label -> (block bytes, window, dict_cap in place of
+# caps_for_block's, or None)
+PLAN_CASES = {
+    "16 KiB": (16 << 10, 8192, None),
+    "16 KiB, dict 8192": (16 << 10, 8192, 8192),
+    "32 KiB": (32 << 10, 8192, None),
+    "64 KiB": (64 << 10, 8192, None),
+    "128 KiB": (128 << 10, 8192, None),
+    "256 KiB": (256 << 10, 8192, None),
+    "256 KiB, -w 32": (256 << 10, 32768, None),
+    "1 MiB": (1 << 20, 8192, None),
+}
+
+
+def print_card() -> None:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    print(smi.stdout.strip(), flush=True)
+
+
+def plan_ab(labels) -> None:
+    """K1 with smem_plan's placement against all-global (PLAN_CASES)."""
+    import dataclasses
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root))
+    import torch
+    from x3tpu_torch import X3Params, codec
+    from x3tpu_torch.parallel import runtime
+    from x3tpu_torch.utils import corpus
+    from x3tpu_torch.vm import driver
+
+    driver.build()
+    print_card()
+    for label in labels or PLAN_CASES:
+        block, window, dict_cap = PLAN_CASES[label]
+        params = X3Params(window=window)
+        caps = runtime.caps_for_block(block, window=window)
+        if dict_cap:
+            caps = dataclasses.replace(caps, dict_cap=dict_cap)
+        data = corpus.mb_corpus(32 * block)
+        blocks = [data[i: i + block] for i in range(0, len(data), block)]
+        text, tlen = codec.pack_blocks(blocks, params, caps)
+        text = torch.from_numpy(text).cuda()
+        tlen = torch.from_numpy(tlen).cuda()
+        # the placement smem_plan would pick with no dictionary limit
+        limit, driver.SMEM_DICT_MAX = driver.SMEM_DICT_MAX, caps.dict_cap
+        plan = driver.smem_plan(params, caps)
+        driver.SMEM_DICT_MAX = limit
+        row = {"case": label, "caps": str(caps), "plan_bytes": plan.nbytes,
+               "plan": sorted(plan.offsets), "plan_ms": [], "global_ms": []}
+        hashes = set()
+        for mask in (plan.mask, 0, 0, plan.mask):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            enc = driver._encode_with(text, tlen, params, caps,
+                                      smem_mask=mask)
+            b.record()
+            torch.cuda.synchronize()
+            row["plan_ms" if mask else "global_ms"].append(a.elapsed_time(b))
+            hashes.add(hashlib.sha256(
+                enc[0].cpu().numpy().tobytes()
+                + enc[1].cpu().numpy().tobytes()).hexdigest()[:16])
+        if len(hashes) != 1:
+            raise AssertionError(f"{label}: the placements' streams differ")
+        row["sha"] = hashes.pop()
+        row["events_slowest_lane"] = int(enc[2].sum(1).max())
+        row["flags"] = [f for f in enc[4]._fields
+                        if bool(getattr(enc[4], f).any())]
+        print(json.dumps(row), flush=True)
 
 
 def time_tree(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
@@ -81,6 +164,9 @@ def time_tree(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1] == "--plan":
+        plan_ab(sys.argv[2:])
+        return 0
     if sys.argv[1] == "--one":
         print(json.dumps(time_tree(pathlib.Path(sys.argv[2]).resolve(),
                                    pathlib.Path(sys.argv[3]))), flush=True)
@@ -89,10 +175,7 @@ def main() -> int:
     sys.path.insert(0, str(root))
     import chip_smoke
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True)
-    print(smi.stdout.strip(), flush=True)
+    print_card()
     data_path = root / "build" / "kernel_ab_data.bin"
     data_path.parent.mkdir(parents=True, exist_ok=True)
     data_path.write_bytes(chip_smoke.corpus(max(LANES) * BLOCK))

@@ -79,7 +79,7 @@ class Core:
         self.lib = lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.x3h_encode.argtypes = ([p, p, i, ctypes.c_longlong] + [i] * 12
-                                   + [ctypes.c_uint, p, p, i] + [p] * 5)
+                                   + [ctypes.c_uint, p, p, i] + [p] * 6)
         lib.x3h_encode.restype = i
         lib.x3h_decode.argtypes = [p, p] + [i] * 9 + [p, p, i] + [p] * 5
         lib.x3h_decode.restype = i
@@ -114,7 +114,7 @@ class Core:
             caps.pair_cap, caps.ctx_items_cap, caps.ctx0_items_cap,
             caps.ctx_small_cap, caps.ctx_promo_rows, caps.out_words, mask,
             sp, lp, k, words.ctypes.data, lens.ctypes.data,
-            counts.ctypes.data, sizes.ctypes.data, flags.ctypes.data)
+            counts.ctypes.data, sizes.ctypes.data, flags.ctypes.data, None)
         streams = [words[i].tobytes()[: min(lens[i], 4 * caps.out_words)]
                    for i in range(lanes)]
         return streams, flags

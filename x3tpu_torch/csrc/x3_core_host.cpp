@@ -141,18 +141,30 @@ void x3h_seed_scratch(int D, int pair_cap, int items1, int items0,
   x3::seed_dict(lay, scr, strs, lens, K, cumulative != 0);
 }
 
+// int32 words of scratch one lane needs, as x3_scratch_words in
+// x3_encoder.cu.
+long long x3h_scratch_words(int D, int pair_cap, int items1, int items0,
+                            int small_cap, int promo_rows) {
+  return x3::make_layout(
+             x3::Caps{D, pair_cap, items1, items0, small_cap, promo_rows, 0})
+      .words;
+}
+
 // Same arguments and outputs as x3_encode in x3_encoder.cu, in host memory,
 // but for the seeds: the K seeds themselves (seed_strs K x 32 bytes,
 // seed_lens K), which seed_dict writes into each lane's scratch; words
 // [lanes, out_words] must be zeroed.  The planes of smem_mask live in a
-// buffer of their own, as the kernel's shared memory holds them.
+// buffer of their own, as the kernel's shared memory holds them.  Where
+// scratch_out [x3h_scratch_words] is not null, the last lane's scratch as
+// the encoder left it is copied there (the planes of smem_mask as they
+// were at the lane's start).
 int x3h_encode(const uint8_t* text, const int32_t* tlen, int lanes,
                long long tb, int T, int W, int f1, int f2, int nl, int D,
                int pair_cap, int items1, int items0, int small_cap,
                int promo_rows, int out_words, unsigned smem_mask,
                const uint8_t* seed_strs, const int32_t* seed_lens, int K,
                uint32_t* words, int32_t* byte_lens, int32_t* counts,
-               float* sizes, int32_t* flags) {
+               float* sizes, int32_t* flags, int32_t* scratch_out) {
   const x3::Caps caps{D, pair_cap, items1, items0, small_cap, promo_rows,
                       out_words};
   const x3::Params prm{T, W, f1, f2, nl};
@@ -181,6 +193,8 @@ int x3h_encode(const uint8_t* text, const int32_t* tlen, int lanes,
     x3::Shared sh;
     x3::encode_lane(x3::ParHost(), prm, caps, lay, io, R, sh);
   }
+  if (scratch_out && lanes > 0)
+    memcpy(scratch_out, scratch.data(), sizeof(int32_t) * lay.words);
   return 0;
 }
 

@@ -1,7 +1,7 @@
 """Runtime of the port (``x3tpu.parallel.runtime`` on one device): block
 splitting, capacity heuristics, dictionary seeds, waves of independent
-blocks, overflow auto-retry, the wave journal, container framing;
-``compress`` and ``decompress``.
+blocks run as launches sized to the device's memory, overflow auto-retry,
+the wave journal, container framing; ``compress`` and ``decompress``.
 
 The engine follows the device and nothing else: ``device="cuda"`` runs the
 CUDA kernels (``x3tpu_torch.vm.driver``) and raises without a card,
@@ -28,10 +28,18 @@ from x3tpu_torch.config import (MAX_MATCH_LEN, CodecCaps, X3Params,
                                 resolve_device)
 from x3tpu_torch.parallel import blocks as blk
 from x3tpu_torch.utils.stats import CodecStats
+from x3tpu_torch.vm import driver
 
 
 MAX_RETRIES = 3  # capacity doublings before an overflow is raised
 MIN_STREAM = 4   # bytes of the shortest valid stream (an empty block's)
+# the share of the card's total memory one launch's lanes may take (the
+# rest: the wave's inputs and outputs, PyTorch's allocator, other work)
+MEM_SHARE = 0.75
+
+
+class LaunchMemoryError(RuntimeError):
+    """One lane needs more device memory than a launch may take."""
 
 
 class WaveJournal:
@@ -153,33 +161,101 @@ def _wave_lanes(nblocks: int, lanes_per_device: int = 0) -> int:
     return max(lanes, 1)
 
 
-def _encode_one_device(text: np.ndarray, tlen: np.ndarray, params: X3Params,
-                       caps: CodecCaps, device: torch.device, seeds=None):
-    """Encode one packed wave on ``device``: the CUDA kernel for a CUDA
-    device, the plain PyTorch encoder for the CPU."""
-    text_t = torch.from_numpy(text).to(device)
-    tlen_t = torch.from_numpy(tlen).to(device)
-    if device.type == "cuda":
-        from x3tpu_torch.vm import driver
+def launch_lanes(lane_bytes: int, caps: CodecCaps, device: torch.device,
+                 mem_budget: Optional[int] = None) -> int:
+    """Lanes a launch may hold: ``mem_budget`` bytes (default: MEM_SHARE of
+    the card's total memory, so the count never depends on what else
+    holds memory; on the CPU, no bound) over ``lane_bytes``, the bytes one
+    lane takes (``driver.encoder_lane_bytes`` / ``decoder_lane_bytes``).
+    x3tpu fits its lanes to the chip with ``set_active_lanes`` and
+    sub-batches; here a wave runs as consecutive launches of at most this
+    many lanes.  Raises LaunchMemoryError when one lane does not fit:
+    capacities are never cut to make it."""
+    if mem_budget is None:
+        if device.type != "cuda":
+            return 1 << 30
+        mem_budget = int(MEM_SHARE * torch.cuda.get_device_properties(
+            device).total_memory)
+    lanes = mem_budget // lane_bytes
+    if lanes < 1:
+        raise LaunchMemoryError(
+            f"one lane needs {lane_bytes} bytes of device memory at {caps}, "
+            f"more than a launch may take ({mem_budget} bytes)")
+    return lanes
 
-        return driver.encode_blocks_cuda(text_t, tlen_t, params, caps, seeds)
-    return codec.encode_blocks_chunked(text_t, tlen_t, params, caps, seeds)
+
+def _launches(lanes: int, per: int, launch):
+    """Run ``launch(lo, hi)`` over lanes [0, lanes) in slices of at most
+    ``per`` and join the results (tensors, then the Overflow) in lane
+    order; one launch (no lanes: one empty launch) is returned as it is."""
+    outs = [launch(lo, min(lo + per, lanes))
+            for lo in range(0, max(lanes, 1), per)]
+    if len(outs) == 1:
+        return outs[0]
+    joined = [torch.cat([o[k] for o in outs]) for k in range(4)]
+    overflow = codec.Overflow(*(torch.cat([getattr(o[4], f) for o in outs])
+                                for f in codec.Overflow._fields))
+    return (*joined, overflow)
+
+
+def _encode_one_device(text: np.ndarray, tlen: np.ndarray, params: X3Params,
+                       caps: CodecCaps, device: torch.device, seeds=None,
+                       mem_budget: Optional[int] = None):
+    """Encode one packed wave on ``device``: the CUDA kernel for a CUDA
+    device, the plain PyTorch encoder for the CPU; in launches of at most
+    :func:`launch_lanes` lanes each."""
+    per = launch_lanes(driver.encoder_lane_bytes(params, caps), caps, device,
+                       mem_budget)
+
+    def launch(lo, hi):
+        text_t = torch.from_numpy(text[lo:hi]).to(device)
+        tlen_t = torch.from_numpy(tlen[lo:hi]).to(device)
+        if device.type == "cuda":
+            return driver.encode_blocks_cuda(text_t, tlen_t, params, caps,
+                                             seeds)
+        return codec.encode_blocks_chunked(text_t, tlen_t, params, caps,
+                                           seeds)
+
+    return _launches(len(tlen), per, launch)
 
 
 def _decode_one_device(words: np.ndarray, byte_lens: np.ndarray,
-                       caps: CodecCaps, device: torch.device, seeds=None):
+                       caps: CodecCaps, device: torch.device, seeds=None,
+                       mem_budget: Optional[int] = None):
     """Decode one packed wave (``words`` u32 [L, IW]) on ``device``: the
-    CUDA kernel for a CUDA device, the plain PyTorch decoder for the
-    CPU."""
-    if device.type == "cuda":
-        from x3tpu_torch.vm import driver
+    CUDA kernel for a CUDA device, the plain PyTorch decoder for the CPU;
+    in launches of at most :func:`launch_lanes` lanes each."""
+    per = launch_lanes(driver.decoder_lane_bytes(caps, words.shape[1]), caps,
+                       device, mem_budget)
 
-        return driver.decode_blocks_cuda(
-            torch.from_numpy(words.view(np.int32)).to(device),
-            torch.from_numpy(byte_lens).to(device), caps, seeds)
-    return codec.decode_blocks_chunked(torch.from_numpy(words.astype(np.int64)),
-                                       torch.from_numpy(byte_lens), caps,
-                                       seeds)
+    def launch(lo, hi):
+        if device.type == "cuda":
+            return driver.decode_blocks_cuda(
+                torch.from_numpy(words[lo:hi].view(np.int32)).to(device),
+                torch.from_numpy(byte_lens[lo:hi]).to(device), caps, seeds)
+        return codec.decode_blocks_chunked(
+            torch.from_numpy(words[lo:hi].astype(np.int64)),
+            torch.from_numpy(byte_lens[lo:hi]), caps, seeds)
+
+    return _launches(len(byte_lens), per, launch)
+
+
+def _retry_caps(caps: CodecCaps, flags, out_field: str) -> CodecCaps:
+    """The capacities of the attempt after an overflow of ``flags``: every
+    state cap doubled (``CodecCaps.scaled``, x3tpu's retry); after a context
+    overflow the pool of promoted rows too, which ``scaled`` keeps (so does
+    x3tpu), or a block with more than ``ctx_promo_rows`` context rows past
+    ``ctx_small_cap`` items overflows at every attempt (a 4 MiB block of
+    the MB corpus has more than 4096 such ctx0 rows); after an output
+    overflow the output's room, ``out_field``."""
+    caps = caps.scaled(2)
+    if "ctx0" in flags or "ctx1" in flags:
+        caps = dataclasses.replace(caps,
+                                   ctx_promo_rows=2 * caps.ctx_promo_rows)
+    if "out" in flags:
+        caps = dataclasses.replace(caps,
+                                   **{out_field: 2 * getattr(caps, out_field)})
+    return caps
 
 
 def encode_wave(
@@ -188,12 +264,15 @@ def encode_wave(
     caps: CodecCaps,
     device="cuda",
     seeds=None,
+    mem_budget: Optional[int] = None,
 ) -> RunResult:
     """Encode one wave of blocks with capacity auto-retry: any lane
     overflow re-runs the wave at doubled capacities, up to MAX_RETRIES
     times (the output stays the exact reference-format stream).  Every
     lane starts from the dictionary ``seeds`` (strs u8 [K, 32], lens i32
-    [K]; :func:`seeds_to_arrays`) where given."""
+    [K]; :func:`seeds_to_arrays`) where given.  Each attempt runs as
+    launches of at most :func:`launch_lanes` lanes (``mem_budget``); the
+    split changes no stream."""
     dev = resolve_device(device)
     nblocks = len(blocks_in)
     lanes = _wave_lanes(nblocks)
@@ -201,20 +280,14 @@ def encode_wave(
     for attempt in range(MAX_RETRIES + 1):
         text, tlen = codec.pack_blocks(padded, params, caps)
         words, byte_lens, counts, sizes, overflow = _encode_one_device(
-            text, tlen, params, caps, dev, seeds)
+            text, tlen, params, caps, dev, seeds, mem_budget)
         try:
             codec._check_overflow(overflow)
             break
         except codec.X3CapacityError as e:
             if attempt == MAX_RETRIES:
                 raise
-            caps = caps.scaled(2)
-            if "out" in e.flags:
-                # scaled() grows only the state caps; an output-buffer
-                # overflow needs headroom growth too
-                caps = dataclasses.replace(
-                    caps, out_words_factor=caps.out_words_factor * 2
-                )
+            caps = _retry_caps(caps, e.flags, "out_words_factor")
     payloads = codec.streams_from_words(words, byte_lens, nblocks)
     stats = CodecStats.from_arrays(
         counts[:nblocks].cpu().numpy(), sizes[:nblocks].cpu().numpy()
@@ -228,10 +301,13 @@ def decode_wave(
     caps: CodecCaps,
     device="cuda",
     seeds=None,
+    mem_budget: Optional[int] = None,
 ) -> RunResult:
     """Decode one wave of streams with capacity auto-retry: an output
     overflow doubles ``block_bytes``, any overflow doubles the state caps,
-    up to MAX_RETRIES times.  ``seeds`` must be the encoder's.  A stream
+    up to MAX_RETRIES times.  ``seeds`` must be the encoder's.  Each
+    attempt runs as launches of at most :func:`launch_lanes` lanes
+    (``mem_budget``).  A stream
     shorter than the shortest valid one (MIN_STREAM bytes), a corrupt
     stream, and a block whose decoded length is not its ``orig_lens`` entry
     (None: any length) raise ValueError."""
@@ -249,17 +325,14 @@ def decode_wave(
         byte_lens[i] = len(s)
     for attempt in range(MAX_RETRIES + 1):
         out, out_lens, counts, sizes, overflow = _decode_one_device(
-            words, byte_lens, caps, dev, seeds)
+            words, byte_lens, caps, dev, seeds, mem_budget)
         try:
             codec._check_overflow(overflow)
             break
         except codec.X3CapacityError as e:
             if attempt == MAX_RETRIES:
                 raise
-            caps = caps.scaled(2)
-            if "out" in e.flags:
-                caps = dataclasses.replace(caps,
-                                           block_bytes=caps.block_bytes * 2)
+            caps = _retry_caps(caps, e.flags, "block_bytes")
     out_np = out.cpu().numpy()
     lens_np = out_lens.cpu().numpy()
     results = []

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import pathlib
@@ -50,6 +51,10 @@ OF_CORRUPT = 64
 # and the most K1's static part takes; the plan's planes get the rest
 SMEM_BLOCK_MAX = 232448
 SMEM_STATIC = 16384
+# the largest dictionary whose planes K1 keeps in shared memory: above it
+# every plane stays global, where L1 holds the hot ones (with planes of
+# 189-206 KB in shared memory, L1 keeps about 28 KB of the SM's 256 KB)
+SMEM_DICT_MAX = 1024
 # the planes K1 may keep in shared memory, hottest first (x3_core.cuh PL_*)
 SMEM_PLANES = ("text", "strs", "lens", "rank_of", "ix", "f1_hub_tags",
                "f1_hub_freqs", "f1_hub_pair", "f0_hub_tags", "f0_hub_freqs",
@@ -76,10 +81,14 @@ def smem_plan(params: X3Params, caps: CodecCaps) -> SmemPlan:
     """The planes of a launch that go to shared memory: each in order, at a
     16-byte boundary, while it fits in what a block may have beside K1's
     static part (x3_core.cuh place_smem packs the same planes the same
-    way).  At ``caps_for_block(16 KiB)`` every plane fits (99 392 bytes);
-    at ``dict_cap`` 8192 the dictionary strings (256 KiB) stay in global
-    memory and the text row, the int32 planes and some of the hubs move."""
+    way).  At ``caps_for_block(16 KiB)`` every plane fits (99 392 bytes).
+    Above SMEM_DICT_MAX entries the plan is empty: all-global measured
+    2-4 % faster at dict 2048-8192 and 13-34 % faster at dict 6144-24576
+    (32 KiB to 1 MiB blocks, ``tools/kernel_ab.py --plan``), and equal at
+    dict 1024."""
     d = caps.dict_cap
+    if d > SMEM_DICT_MAX:
+        return SmemPlan({}, 0)
     sizes = dict.fromkeys(SMEM_PLANES, 4 * d)  # int32 planes of D entries
     sizes["text"] = codec.text_bytes(params, caps)
     sizes["strs"] = d * MAX_MATCH_LEN
@@ -205,12 +214,70 @@ def decoder_info() -> Dict[str, int]:
     return _info("decoder")
 
 
+def _fam_layout(h: int, s: int, items: int, small_cap: int, promo_rows: int,
+                with_pair: bool, at: int) -> Dict[str, int]:
+    """One context family's planes from word ``at`` on (x3_core.cuh
+    make_fam); ``"end"`` is the word after them."""
+    cs = min(small_cap, items)
+    m = promo_rows if promo_rows else max(s // 8, 16)
+    sizes = (("hub_tags", h), ("hub_freqs", h),
+             ("hub_pair", h if with_pair else 0), ("tags", s * cs),
+             ("freqs", s * cs), ("pair", s * cs if with_pair else 0),
+             ("n", s), ("promo", s), ("big_tags", m * items),
+             ("big_freqs", m * items),
+             ("big_pair", m * items if with_pair else 0), ("big_n", m))
+    out = {}
+    for name, size in sizes:
+        out[name] = at
+        at += size
+    out["end"] = at
+    return out
+
+
+def layout(caps: CodecCaps) -> Dict[str, object]:
+    """A lane's scratch layout in int32 words, the copy of x3_core.cuh
+    make_layout that needs no kernel library, for the launch split's lane
+    bytes (the CPU tests hold it against the host build's, and every
+    launch against the kernels', :func:`kernel_layout`): the dictionary
+    planes, ``"f0"`` and ``"f1"`` (each family's planes,
+    :func:`_fam_layout`) and ``"words"``, the lane's total."""
+    d, at, out = caps.dict_cap, 0, {}
+    for name, size in (("strs", d * MAX_MATCH_LEN // 4), ("lens", d),
+                       ("rank_of", d), ("tag_of", d), ("ix", d)):
+        out[name] = at
+        at += size
+    out["f0"] = _fam_layout(d, caps.pair_cap, caps.ctx0_items_cap,
+                            caps.ctx_small_cap, caps.ctx_promo_rows, False, at)
+    out["f1"] = _fam_layout(d, d, caps.ctx_items_cap, caps.ctx_small_cap,
+                            caps.ctx_promo_rows, True, out["f0"]["end"])
+    out["words"] = out["f1"]["end"]
+    return out
+
+
 def scratch_words(caps: CodecCaps) -> int:
     """int32 words of dictionary and context state one lane needs (the
-    same layout for both kernels)."""
-    return _load()["encoder"].x3_scratch_words(
-        caps.dict_cap, caps.pair_cap, caps.ctx_items_cap,
-        caps.ctx0_items_cap, caps.ctx_small_cap, caps.ctx_promo_rows)
+    same layout for both kernels), from :func:`layout`."""
+    return layout(caps)["words"]
+
+
+# per-lane bytes of a launch's small outputs: lengths, counts, sizes, flags
+_LANE_SMALL = 4 + 20 + 20 + 4
+
+
+def encoder_lane_bytes(params: X3Params, caps: CodecCaps) -> int:
+    """Device bytes one lane of a K1 launch takes: its zeroed scratch, its
+    text row, its output words (int32 from the kernel, then the int64
+    copy and the masked one the wrapper returns) and its small outputs."""
+    return (4 * scratch_words(caps) + codec.text_bytes(params, caps)
+            + 20 * caps.out_words + _LANE_SMALL + 4)
+
+
+def decoder_lane_bytes(caps: CodecCaps, iw: int) -> int:
+    """Device bytes one lane of a K2 launch of ``iw`` stream words takes:
+    its zeroed scratch, its stream, its output row and its small
+    outputs."""
+    return (4 * scratch_words(caps) + 4 * iw + caps.block_bytes
+            + _LANE_SMALL + 4)
 
 
 # the dictionary planes a seeded start writes, in x3_dict_layout's order
@@ -219,11 +286,15 @@ DICT_PLANES = ("strs", "lens", "rank_of", "tag_of", "ix")
 
 def dict_layout(caps: CodecCaps, lib: Optional[ctypes.CDLL] = None,
                 fn: str = "x3_dict_layout") -> Dict[str, int]:
-    """The dictionary planes' offsets in a lane's scratch, in int32 words
-    (``lib``'s ``fn``: the kernels' layout query by default; the CPU tests
-    pass the host build's)."""
+    """The dictionary planes' offsets in a lane's scratch, in int32 words:
+    from :func:`layout`, or from ``lib``'s ``fn`` where given (the kernels'
+    layout query; the CPU tests pass the host build's
+    ``x3h_dict_layout``)."""
+    if lib is None:
+        lay = layout(caps)
+        return {k: lay[k] for k in DICT_PLANES}
     out = (ctypes.c_longlong * len(DICT_PLANES))()
-    getattr(lib or _load()["encoder"], fn)(
+    getattr(lib, fn)(
         caps.dict_cap, caps.pair_cap, caps.ctx_items_cap,
         caps.ctx0_items_cap, caps.ctx_small_cap, caps.ctx_promo_rows, out)
     return dict(zip(DICT_PLANES, out))
@@ -254,14 +325,38 @@ def seed_scratch(scratch: torch.Tensor, offsets: Dict[str, int], seeds,
         scratch[:, at : at + vals.numel()] = vals
 
 
+def kernel_layout(caps: CodecCaps, lib: Optional[ctypes.CDLL] = None):
+    """A lane's scratch words and the dictionary planes' offsets as the
+    kernel library ``lib`` (default: the main path's K1) has them
+    (x3_scratch_words, x3_dict_layout): every launch's scratch is sized and
+    seeded from these.  Raises if the Python copy (:func:`layout`), by
+    which the launch split counts a lane's bytes, differs."""
+    return _kernel_layout(lib or _load()["encoder"], caps)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_layout(lib: ctypes.CDLL, caps: CodecCaps):
+    words = lib.x3_scratch_words(
+        caps.dict_cap, caps.pair_cap, caps.ctx_items_cap,
+        caps.ctx0_items_cap, caps.ctx_small_cap, caps.ctx_promo_rows)
+    offsets = dict_layout(caps, lib)
+    if words != scratch_words(caps) or offsets != dict_layout(caps):
+        raise RuntimeError(
+            f"the kernels' scratch layout ({words} words, {offsets}) is not "
+            f"driver.layout's ({scratch_words(caps)}, {dict_layout(caps)}) "
+            f"at {caps}")
+    return words, offsets
+
+
 def _seeded_scratch(lanes: int, caps: CodecCaps, dev, seeds,
-                    cumulative: bool):
-    """A wave's zeroed scratch with the seeds written in, and K."""
+                    cumulative: bool, lib: Optional[ctypes.CDLL] = None):
+    """A wave's zeroed scratch with the seeds written in, and K; the
+    layout is the kernel library ``lib``'s (:func:`kernel_layout`)."""
     k = codec.check_seeds(seeds, caps)
-    scratch = torch.zeros((lanes, scratch_words(caps)), dtype=torch.int32,
-                          device=dev)
+    words, offsets = kernel_layout(caps, lib)
+    scratch = torch.zeros((lanes, words), dtype=torch.int32, device=dev)
     if k:
-        seed_scratch(scratch, dict_layout(caps), seeds, cumulative)
+        seed_scratch(scratch, offsets, seeds, cumulative)
     return scratch, k
 
 
@@ -289,10 +384,12 @@ def encode_blocks_cuda(text: torch.Tensor, tlen: torch.Tensor,
 
 def _encode_with(text: torch.Tensor, tlen: torch.Tensor, params: X3Params,
                  caps: CodecCaps, lib: Optional[ctypes.CDLL] = None,
-                 phases: Optional[torch.Tensor] = None, seeds=None):
+                 phases: Optional[torch.Tensor] = None, seeds=None,
+                 smem_mask: Optional[int] = None):
     """:func:`encode_blocks_cuda` through ``lib`` (default: the main
     path's); ``phases`` (i64 [L, slots]) only with a library built with
-    -DX3_PHASES (tools/k1_phases.py)."""
+    -DX3_PHASES (tools/k1_phases.py); ``smem_mask`` in place of
+    :func:`smem_plan`'s (0: every plane global; tools/kernel_ab.py)."""
     lanes = text.shape[0] if isinstance(text, torch.Tensor) else 0
     _check("text", text, torch.uint8,
            (lanes, codec.text_bytes(params, caps)))
@@ -304,7 +401,7 @@ def _encode_with(text: torch.Tensor, tlen: torch.Tensor, params: X3Params,
     lib = lib or _load()["encoder"]
     dev = text.device
     with torch.cuda.device(dev):
-        scratch, k = _seeded_scratch(lanes, caps, dev, seeds, False)
+        scratch, k = _seeded_scratch(lanes, caps, dev, seeds, False, lib)
         words = torch.zeros((lanes, caps.out_words), dtype=torch.int32,
                             device=dev)
         byte_lens = torch.empty((lanes,), dtype=torch.int32, device=dev)
@@ -319,7 +416,8 @@ def _encode_with(text: torch.Tensor, tlen: torch.Tensor, params: X3Params,
                 params.magic_factor2, int(params.nl_remap), caps.dict_cap,
                 caps.pair_cap, caps.ctx_items_cap, caps.ctx0_items_cap,
                 caps.ctx_small_cap, caps.ctx_promo_rows, caps.out_words,
-                smem_plan(params, caps).mask, k, scratch.data_ptr(),
+                smem_plan(params, caps).mask if smem_mask is None
+                else smem_mask, k, scratch.data_ptr(),
                 words.data_ptr(), byte_lens.data_ptr(), counts.data_ptr(),
                 sizes.data_ptr(), flags.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream, *extra)
