@@ -64,7 +64,20 @@ exit at the first failure:
    rows; the decode at a raw stream's 64:1 guess, retried once) and on 32
    MiB in 1 MiB blocks (a container of 32 lanes), each the reference
    stream(s) and back byte for byte; then the 4 MiB lane alone through
-   each kernel at the caps where it fits, timed.
+   each kernel at the caps where it fits, timed;
+16. mesh: the 32 x 16 KiB main-path wave through ``compress(mesh=)`` and
+   ``decompress(mesh=)`` over every local card and over a 2-entry mesh
+   (cuda:0 twice on a one-card machine, two streams side by side), each
+   the one-device wave's streams, one K1 and one K2 launch a lane group,
+   and the data back; then the MB wave over the 2-entry mesh with a
+   budget of 8 lanes a launch (2 groups x 2 launches each way), the
+   reference streams and the blocks back, timed beside phase 13's 4
+   launches in series;
+17. distributed: two processes (this script again, ``--dist-worker``),
+   each on cuda:<rank % count>, joined over gloo on localhost, each
+   encoding its half of a 64 x 16 KiB wave with K1; rank 0 gathers the
+   payloads in lane order, which must be the one-process wave's, and K2
+   decodes them back.  A failure of either process fails the script.
 
 The last line is one JSON object, {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launches, errors, times and bounds.
@@ -76,6 +89,7 @@ import json
 import os
 import pathlib
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -109,6 +123,56 @@ def bound_ms(nbytes: int) -> float:
     byte read once, each output byte written once) at its peak
     device-memory rate."""
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def dist_worker(rank: int, world: int, port: int, outdir: str) -> int:
+    """Phase 17's process ``rank`` of ``world``: on cuda:<rank % count>,
+    join the gloo group at localhost:``port``, encode lanes ``rank *
+    64 / world`` on of the 64 x 16 KiB wave with K1, and gather every
+    payload on rank 0, which decodes them with K2, checks the blocks and
+    writes the payloads to ``outdir``.  Prints one JSON line of its
+    numbers; any failure raises (a non-zero exit)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from x3tpu_torch.config import X3Params
+    from x3tpu_torch.parallel import blocks as blk
+    from x3tpu_torch.parallel import distributed, runtime
+    from x3tpu_torch.vm import driver
+
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    if distributed.init_multihost(f"localhost:{port}", world, rank) != rank:
+        raise AssertionError(f"rank {rank}: the group gave another rank")
+    blocks = blk.split_blocks(corpus(64 * BLOCK), BLOCK)
+    per = len(blocks) // world
+    lo = rank * per
+    caps = runtime.caps_for_block(BLOCK)
+    t = time.perf_counter()
+    res = runtime.encode_wave(blocks[lo : lo + per], X3Params(), caps,
+                              device=dev)
+    enc_s = time.perf_counter() - t
+    t = time.perf_counter()
+    gathered = distributed.gather_payloads_in_order(res.payloads, lo,
+                                                    len(blocks))
+    gather_s = time.perf_counter() - t
+    dec_s = None
+    if rank == 0:
+        t = time.perf_counter()
+        back = runtime.decode_wave(gathered, [len(b) for b in blocks], caps,
+                                   device=dev)
+        dec_s = time.perf_counter() - t
+        if back.payloads != blocks:
+            raise AssertionError("rank 0: K2 did not give the blocks back")
+        pathlib.Path(outdir, "payloads.json").write_text(json.dumps(
+            [p.hex() for p in gathered]))
+    elif gathered is not None:
+        raise AssertionError(f"rank {rank}: gathered payloads off rank 0")
+    torch.distributed.destroy_process_group()
+    print(json.dumps({"rank": rank, "device": str(dev), "lanes": per,
+                      "launches": dict(driver.LAUNCHES), "encode_s": enc_s,
+                      "gather_s": gather_s, "decode_s": dec_s}), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -1003,6 +1067,112 @@ def main() -> int:
         ms for ms, _ in k2_attempts]
     phase("MB command line", t0)
 
+    # ---- 16. mesh: lane groups over the local cards, and two entries on
+    # one card (two streams side by side)
+    t0 = time.perf_counter()
+    from x3tpu_torch.parallel import mesh as meshmod
+
+    count = torch.cuda.device_count()
+    meshes = {f"every card ({count})": meshmod.make_mesh(),
+              "2 entries": meshmod.make_mesh(
+                  devices=[f"cuda:{i % count}" for i in range(2)])}
+    mesh_launches = {"encoder": 0, "decoder": 0}
+    one_blob = results[32, False][0]
+    for label, m in meshes.items():
+        lpd = -(-32 // m.size)   # one wave of 32 blocks (padded to the mesh)
+        blob, enc_s, n = counted(lambda: x3tpu_torch.compress(
+            data[32], block_bytes=BLOCK, lanes_per_device=lpd, mesh=m,
+            device="cuda"))
+        if blob != one_blob or n != {"encoder": m.size, "decoder": 0}:
+            raise AssertionError(f"mesh {label}: the one-device streams "
+                                 f"{blob == one_blob}, launches {n}")
+        back, dec_s, n2 = counted(lambda: x3tpu_torch.decompress(
+            blob, lanes_per_device=lpd, mesh=m, device="cuda"))
+        if back != data[32] or n2 != {"encoder": 0, "decoder": m.size}:
+            raise AssertionError(f"mesh {label}: decompress gave "
+                                 f"{len(back)} B in launches {n2}")
+        for k in mesh_launches:
+            mesh_launches[k] += n[k] + n2[k]
+        print(f"mesh {label} {[str(d) for d in m.devices]}: 32 x 16 KiB "
+              f"the one-device streams, {n['encoder']} K1 and "
+              f"{n2['decoder']} K2 launches; compress {enc_s:.4f} s, "
+              f"decompress {dec_s:.4f} s", flush=True)
+    two = meshes["2 entries"]
+    res, enc_s, n = counted(lambda: runtime.encode_wave(
+        mb_blocks, params, mb_caps, device="cuda", mesh=two,
+        mem_budget=budget))
+    if n["encoder"] != 4:
+        raise AssertionError(f"mesh MB wave: {n['encoder']} K1 launches, "
+                             f"want 2 groups x 2")
+    oracle_check("mesh MB wave", res.payloads, "wave_1m")
+    dres, dec_s, n2 = counted(lambda: runtime.decode_wave(
+        res.payloads, [len(b) for b in mb_blocks], mb_caps, device="cuda",
+        mesh=two, mem_budget=dbudget))
+    if n2["decoder"] != 4 or dres.payloads != mb_blocks:
+        raise AssertionError(f"mesh MB wave: {n2['decoder']} K2 launches, "
+                             f"blocks equal {dres.payloads == mb_blocks}")
+    serial = (mb["encoder"]["wall_s_mb_split"],
+              mb["decoder"]["wall_s_mb_split"])
+    print(f"mesh MB wave over {[str(d) for d in two.devices]}: 2 groups x "
+          f"2 launches of 8 lanes each way, the reference streams and the "
+          f"blocks back; encode_wave {enc_s:.3f} s, decode_wave "
+          f"{dec_s:.3f} s; phase 13's 4 launches in series "
+          f"{serial[0]:.3f} s, {serial[1]:.3f} s ({enc_s / serial[0]:.3f}x, "
+          f"{dec_s / serial[1]:.3f}x)", flush=True)
+    for kernel, wall, launched in (("encoder", enc_s, n["encoder"]),
+                                   ("decoder", dec_s, n2["decoder"])):
+        mb[kernel].update({"launches_mesh": mesh_launches[kernel],
+                           "wall_s_mb_mesh2": wall,
+                           "launches_mb_mesh2": launched})
+    phase("mesh", t0)
+
+    # ---- 17. distributed: two processes, gloo over localhost
+    t0 = time.perf_counter()
+    dist_dir = ROOT / "build" / "chip_smoke_dist"
+    shutil.rmtree(dist_dir, ignore_errors=True)
+    dist_dir.mkdir(parents=True)
+    blocks64 = blk.split_blocks(corpus(64 * BLOCK), BLOCK)
+    want = runtime.encode_wave(blocks64, params, caps, device="cuda").payloads
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-worker",
+         str(rank), "2", str(port), str(dist_dir)], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"distributed rank {rank}: exit "
+                                 f"{p.returncode}\n{out[-3000:]}")
+    ranks = [json.loads([line for line in out.splitlines()
+                         if line.startswith('{"rank"')][-1]) for out in outs]
+    gathered = [bytes.fromhex(h) for h in json.loads(
+        (dist_dir / "payloads.json").read_text())]
+    if gathered != want:
+        raise AssertionError("distributed: the gathered payloads are not "
+                             "the one-process wave's")
+    shutil.rmtree(dist_dir)
+    for r in ranks:
+        print(f"distributed rank {r['rank']} on {r['device']}: {r['lanes']} "
+              f"lanes, launches {r['launches']}; encode_wave "
+              f"{r['encode_s']:.4f} s, gather {r['gather_s']:.4f} s"
+              + (f", K2 decode_wave of all 64 {r['decode_s']:.4f} s"
+                 if r["decode_s"] is not None else ""), flush=True)
+    print("distributed: 64 x 16 KiB gathered in lane order on rank 0, the "
+          "one-process wave's payloads, decoded back by K2", flush=True)
+    for kernel in mb:
+        mb[kernel]["launches_dist"] = sum(r["launches"][kernel]
+                                          for r in ranks)
+    phase("distributed", t0)
+
     k1_info = driver.encoder_info()
     k1_plan = driver.smem_plan(params, caps)
     print(f"K1: {k1_info}; shared memory plan {k1_plan.nbytes} B "
@@ -1083,4 +1253,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(int(sys.argv[2]), int(sys.argv[3]),
+                             int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

@@ -2,8 +2,9 @@
 on the CPU (``--cpu``: the plain PyTorch codec), mirroring
 tests/test_cli.py: the round trip through files, the overwrite guard, the
 refusal of a suffixless input, stdin/stdout, container mode with
-``--dict-seed``, the stats block against x3tpu.spec's counters, one GPU at
-most; and the profiler trace (``x3tpu_torch.utils.profiling``)."""
+``--dict-seed``, the stats block against x3tpu.spec's counters, the
+refusal of more devices than there are, and ``--devices 2`` over CPU
+entries; and the profiler trace (``x3tpu_torch.utils.profiling``)."""
 
 import io
 import os
@@ -94,13 +95,36 @@ def test_cli_container_mode_dict_seed(tmp_path):
 
 
 def test_cli_more_than_one_device_refused(tmp_path):
-    """--devices takes 0 or 1 until multiple GPUs are ported."""
+    """--devices beyond the machine's card count is refused before any
+    output is written; nothing runs on fewer cards or on the CPU."""
+    import torch
+
     src = tmp_path / "a.bin"
     src.write_bytes(b"abc")
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--cpu", "--devices", "2", str(src)])
-    assert e.value.code == 2
-    assert not (tmp_path / "a.bin.x3").exists()
+    for argv in (["--devices", str(torch.cuda.device_count() + 1)],
+                 ["--cpu", "--devices", "-1"]):
+        with pytest.raises(SystemExit) as e:
+            cli.main([*argv, str(src)])
+        assert e.value.code == 2
+        assert not (tmp_path / "a.bin.x3").exists()
+
+
+def test_cli_cpu_devices_round_trip(tmp_path):
+    """--cpu --devices 2 --block-size 1 runs 1 KiB blocks over two CPU
+    entries: x3tpu's container of x3tpu.spec's streams, and -d over the
+    same mesh gives the input back."""
+    data = ((GOLDEN / "text_tiny.bin").read_bytes() * 8)[:1100]
+    src, packed, back = (tmp_path / n for n in ("m.bin", "m.x3", "m.out"))
+    src.write_bytes(data)
+    mesh = ["--cpu", "-q", "--devices", "2", "--block-size", "1"]
+    assert cli.main([*mesh, "-z", "-t", "4", "-w", "1", str(src),
+                     str(packed)]) == 0
+    params = JX3Params(max_match_count=4, window=1024)
+    parts = [data[:1024], data[1024:]]
+    assert packed.read_bytes() == jblk.pack_container(
+        [spec.encode(p, params) for p in parts], [1024, 76], 1024)
+    assert cli.main([*mesh, "-d", str(packed), str(back)]) == 0
+    assert back.read_bytes() == data
 
 
 def test_profiling_trace_and_timers(tmp_path):

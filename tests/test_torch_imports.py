@@ -42,7 +42,8 @@ def test_guard_covers_every_module():
     files the guard reads."""
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for mod in ("__init__", "__main__", "cli", "host", "codec",
-                "parallel/runtime", "parallel/blocks", "vm/driver",
+                "parallel/runtime", "parallel/blocks", "parallel/mesh",
+                "parallel/distributed", "vm/driver",
                 "utils/timing", "utils/profiling", "utils/stats"):
         assert f"x3tpu_torch/{mod}.py" in names, mod
 

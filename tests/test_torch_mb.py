@@ -2,7 +2,7 @@
 kernels at ``caps_for_block`` of 64-256 KiB against x3tpu's native host
 codec; the plain codec at a 32 KiB window against x3tpu's XLA engine; the
 launches a wave is cut into when its lanes do not fit the device's memory
-(``runtime.launch_lanes``), which change no output; the Python copy of
+(``mesh.launch_lanes``), which change no output; the Python copy of
 the kernels' scratch layout; and the recorded MB streams
 (``x3tpu_torch/testdata/mb_streams.json``) that ``chip_smoke.py`` holds
 the kernels to on the card."""
@@ -19,6 +19,7 @@ import torch
 from x3tpu import host, spec
 from x3tpu_torch import codec
 from x3tpu_torch.config import CodecCaps, X3Params
+from x3tpu_torch.parallel import mesh as meshmod
 from x3tpu_torch.parallel import runtime
 from x3tpu_torch.utils import corpus
 from x3tpu_torch.vm import driver
@@ -188,8 +189,9 @@ def test_launch_split_encode(monkeypatch):
     text, tlen, one = _split_inputs()
     per = driver.encoder_lane_bytes(TINY_PARAMS, SPLIT_CAPS)
     calls = _counting(monkeypatch, "encode_blocks_chunked")
-    got = runtime._encode_one_device(text, tlen, TINY_PARAMS, SPLIT_CAPS,
-                                     torch.device("cpu"), None, 3 * per)
+    got = meshmod.encode_sharded(text, tlen, TINY_PARAMS, SPLIT_CAPS,
+                                 meshmod.single(torch.device("cpu")), None,
+                                 3 * per)
     assert calls == [3, 3, 1]
     _same_result(got, one)
     for f in codec.Overflow._fields:
@@ -205,8 +207,9 @@ def test_launch_split_decode(monkeypatch):
     ref = codec.decode_blocks_chunked(one[0], one[1], SPLIT_CAPS)
     per = driver.decoder_lane_bytes(SPLIT_CAPS, words.shape[1])
     calls = _counting(monkeypatch, "decode_blocks_chunked")
-    got = runtime._decode_one_device(words, byte_lens, SPLIT_CAPS,
-                                     torch.device("cpu"), None, 3 * per)
+    got = meshmod.decode_sharded(words, byte_lens, SPLIT_CAPS,
+                                 meshmod.single(torch.device("cpu")), None,
+                                 3 * per)
     assert calls == [3, 3, 1]
     _same_result(got, ref)
 
@@ -263,10 +266,11 @@ def test_one_lane_over_budget_raises():
     is clamped."""
     caps = runtime.caps_for_block(1 << 20)
     need = driver.encoder_lane_bytes(X3Params(), caps)
-    with pytest.raises(runtime.LaunchMemoryError, match="dict_cap=24576") as e:
-        runtime.launch_lanes(need, caps, torch.device("cpu"), need - 1)
+    with pytest.raises(meshmod.LaunchMemoryError,
+                       match="dict_cap=24576") as e:
+        meshmod.launch_lanes(need, caps, torch.device("cpu"), need - 1)
     assert str(need) in str(e.value)
-    assert runtime.launch_lanes(need, caps, torch.device("cpu"), need) == 1
+    assert meshmod.launch_lanes(need, caps, torch.device("cpu"), need) == 1
 
 
 def test_launch_lanes_default_is_a_share_of_total_memory(monkeypatch):
@@ -280,10 +284,10 @@ def test_launch_lanes_default_is_a_share_of_total_memory(monkeypatch):
     caps = runtime.caps_for_block(1 << 20)
     cuda = torch.device("cuda", 0)
     for c, want in ((caps, 114), (caps.scaled(2), 57), (caps.scaled(4), 28)):
-        got = runtime.launch_lanes(driver.encoder_lane_bytes(X3Params(), c),
+        got = meshmod.launch_lanes(driver.encoder_lane_bytes(X3Params(), c),
                                    c, cuda)
         assert got == want, (c, got)
-    assert runtime.launch_lanes(1, caps, torch.device("cpu")) >= 1 << 20
+    assert meshmod.launch_lanes(1, caps, torch.device("cpu")) >= 1 << 20
 
 
 def test_corpus_reads_no_moving_files():

@@ -19,6 +19,7 @@ from x3tpu.parallel import runtime as jruntime
 import x3tpu_torch
 from x3tpu_torch import codec
 from x3tpu_torch.config import CodecCaps, X3Params
+from x3tpu_torch.parallel import mesh as meshmod
 from x3tpu_torch.parallel import runtime
 
 from conftest import GOLDEN
@@ -31,6 +32,20 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 def test_compress_one_block_is_raw_stream():
     data = (GOLDEN / "text_tiny.bin").read_bytes()
     assert x3tpu_torch.compress(data, device="cpu") == spec.encode(data)
+
+
+def test_compress_force_container():
+    """force_container frames a single unseeded block as an X3TC container
+    of one payload, byte for byte x3tpu's (x3tpu.host's stream in
+    x3tpu's framing, block_bytes the input's length), and it decodes
+    back."""
+    data = (GOLDEN / "text_tiny.bin").read_bytes()
+    params = X3Params(max_match_count=4, window=1024)
+    out = x3tpu_torch.compress(data, params, force_container=True,
+                               device="cpu")
+    assert out == blk.pack_container([host.encode(data, jax_twin(params))],
+                                     [len(data)], len(data))
+    assert x3tpu_torch.decompress(out, device="cpu") == data
 
 
 def test_compress_container_matches_host():
@@ -78,12 +93,12 @@ def test_out_overflow_retry_gives_same_bytes(monkeypatch):
     assert out == host.encode(data, jax_twin(params))
 
 
-def _flags_of_each_attempt(monkeypatch, name="_encode_one_device"):
+def _flags_of_each_attempt(monkeypatch, name="encode_sharded"):
     """The overflow flags that fired on each attempt of a wave, recorded
-    as the runtime encodes (or, with ``name="_decode_one_device"``,
+    as the runtime encodes (or, with ``name="decode_sharded"``,
     decodes)."""
     flagged = []
-    run = getattr(runtime, name)
+    run = getattr(meshmod, name)
 
     def recording(*args):
         out = run(*args)
@@ -91,7 +106,7 @@ def _flags_of_each_attempt(monkeypatch, name="_encode_one_device"):
                         if bool(getattr(out[4], f).any())])
         return out
 
-    monkeypatch.setattr(runtime, name, recording)
+    monkeypatch.setattr(meshmod, name, recording)
     return flagged
 
 
@@ -126,7 +141,7 @@ def test_decompress_raw_out_retry(monkeypatch):
     flagged, and the retry doubles block_bytes until it fits."""
     data = (GOLDEN / "text_tiny.bin").read_bytes()
     stream = host.encode(data)
-    flagged = _flags_of_each_attempt(monkeypatch, "_decode_one_device")
+    flagged = _flags_of_each_attempt(monkeypatch, "decode_sharded")
     caps = dataclasses.replace(runtime.caps_for_block(1024), block_bytes=64)
     assert x3tpu_torch.decompress(stream, caps=caps, max_output=64,
                                   device="cpu") == data

@@ -13,6 +13,12 @@ Everything that ran on JAX is ported:
   (``csrc/``);
 * :mod:`x3tpu_torch.parallel.runtime` — ``compress`` and ``decompress``,
   with dictionary seeds and the wave journal;
+* :mod:`x3tpu_torch.parallel.mesh` — lane groups over the local CUDA
+  devices (``make_mesh``, ``compress(mesh=)``), each launch sized to its
+  share of its card's memory;
+* :mod:`x3tpu_torch.parallel.distributed` — several processes: the
+  ``torch.distributed`` (gloo) bootstrap and the in-order gather of the
+  payloads;
 * :mod:`x3tpu_torch.host` — the seed trainer (``csrc/x3_train.cpp``, its
   own copy of the JAX package's host codec's);
 * :mod:`x3tpu_torch.cli` — ``python -m x3tpu_torch``.

@@ -8,10 +8,12 @@ add/strip (x3.c:522-548), stdin/stdout when no files are given, the config
 echo and the stats block on stderr (x3.c:572-575, x3.c:662-699).
 
 Runtime options: --block-size (KiB) splits the input into independent
-blocks (container output); --dict-seed starts every block from a trained
-seed dictionary; --cpu runs the plain PyTorch codec on the host instead of
-the CUDA kernels; --devices takes 0 or 1 (one card); -q/--quiet drops the
-stats report.
+blocks (container output), run as lane groups over a mesh of the local
+cards (``x3tpu_torch.parallel.mesh``); --devices bounds the mesh (0: every
+card; more than the machine has is refused), and either builds it;
+--dict-seed starts every block from a trained seed dictionary; --cpu runs
+the plain PyTorch codec on the host instead of the CUDA kernels (with
+--devices N, over N CPU entries); -q/--quiet drops the stats report.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import sys
 from typing import Optional
 
 from x3tpu_torch.config import X3Params
+from x3tpu_torch.parallel import mesh as meshmod
 from x3tpu_torch.parallel import runtime
 from x3tpu_torch.utils import timing
 
@@ -56,7 +59,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dict-seed", action="store_true",
                    help="broadcast a trained seed dictionary to all blocks")
     p.add_argument("--devices", type=int, default=0,
-                   help="GPUs to use: 0 or 1 (one card)")
+                   help="mesh size (0 = every local GPU)")
     p.add_argument("--cpu", action="store_true",
                    help="run the plain PyTorch codec on the host CPU")
     p.add_argument("--quiet", "-q", action="store_true",
@@ -76,9 +79,16 @@ def main(argv: Optional[list] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     mode = args.mode or "z"
-    if args.devices not in (0, 1):
-        parser.error(f"--devices {args.devices}: the port runs on one GPU")
     device = "cpu" if args.cpu else "cuda"
+    mesh = None
+    if args.devices != 0 or args.block_size:
+        if args.devices < 0:
+            parser.error(f"--devices {args.devices}: not a device count")
+        try:
+            mesh = (meshmod.make_mesh(devices=["cpu"] * max(args.devices, 1))
+                    if args.cpu else meshmod.make_mesh(args.devices or None))
+        except (ValueError, RuntimeError) as e:   # too many, or no card
+            parser.error(f"--devices {args.devices}: {e}")
 
     params = X3Params(
         max_match_count=args.max_match_count,
@@ -135,14 +145,14 @@ def main(argv: Optional[list] = None) -> int:
                 out = runtime.compress(
                     data, params, block_bytes=block_bytes,
                     stats_out=stats_box, dict_seed=args.dict_seed,
-                    device=device,
+                    device=device, mesh=mesh,
                 )
             insize, outsize = len(data), len(out)
         else:
             # the stream is self-describing: no parameter shapes decoding
             with timers.phase("codec"):
                 out = runtime.decompress(data, stats_out=stats_box,
-                                         device=device)
+                                         device=device, mesh=mesh)
             insize, outsize = len(out), len(data)
         elapsed = (timing.wall_clock_ns() - t0) / 1e9
         with timers.phase("write"):

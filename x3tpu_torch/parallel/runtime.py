@@ -1,14 +1,15 @@
-"""Runtime of the port (``x3tpu.parallel.runtime`` on one device): block
-splitting, capacity heuristics, dictionary seeds, waves of independent
-blocks run as launches sized to the device's memory, overflow auto-retry,
-the wave journal, container framing; ``compress`` and ``decompress``.
+"""Runtime of the port (``x3tpu.parallel.runtime``): block splitting,
+capacity heuristics, dictionary seeds, waves of independent blocks on one
+device or over a mesh of lane groups (``x3tpu_torch.parallel.mesh``), run
+as launches sized to the device's memory, overflow auto-retry, the wave
+journal, container framing; ``compress`` and ``decompress``.
 
 The engine follows the device and nothing else: ``device="cuda"`` runs the
 CUDA kernels (``x3tpu_torch.vm.driver``) and raises without a card,
-``device="cpu"`` runs the plain PyTorch codec (``x3tpu_torch.codec``).
-A configuration the kernels cannot run raises; nothing is demoted.  Not
-ported: the warm tape (a container that carries one raises
-``NotImplementedError``) and the device mesh.
+``device="cpu"`` runs the plain PyTorch codec (``x3tpu_torch.codec``); a
+mesh's entries are of the same type.  A configuration the kernels cannot
+run raises; nothing is demoted.  Not ported: the warm tape (a container
+that carries one raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -21,25 +22,21 @@ import os
 from typing import List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from x3tpu_torch import codec
 from x3tpu_torch.config import (MAX_MATCH_LEN, CodecCaps, X3Params,
                                 resolve_device)
 from x3tpu_torch.parallel import blocks as blk
+from x3tpu_torch.parallel import mesh as meshmod
 from x3tpu_torch.utils.stats import CodecStats
-from x3tpu_torch.vm import driver
 
 
 MAX_RETRIES = 3  # capacity doublings before an overflow is raised
-MIN_STREAM = 4   # bytes of the shortest valid stream (an empty block's)
-# the share of the card's total memory one launch's lanes may take (the
-# rest: the wave's inputs and outputs, PyTorch's allocator, other work)
-MEM_SHARE = 0.75
-
-
-class LaunchMemoryError(RuntimeError):
-    """One lane needs more device memory than a launch may take."""
+# the stream of an empty block, the shortest valid one: a wave's pad lanes
+# decode it (the decoder's state at its EOF is the same with or without
+# seeds)
+EMPTY_STREAM = bytes.fromhex("ff170000")
+MIN_STREAM = len(EMPTY_STREAM)
 
 
 class WaveJournal:
@@ -152,92 +149,27 @@ def seeds_to_arrays(seed_bytes: Sequence[bytes]):
     return strs, lens
 
 
-def _wave_lanes(nblocks: int, lanes_per_device: int = 0) -> int:
-    """Lanes per wave on one device: the blocks, bounded by
-    lanes_per_device (0 = unbounded)."""
-    lanes = nblocks
+def _wave_lanes(nblocks: int, mesh: Optional[meshmod.Mesh],
+                lanes_per_device: int = 0) -> int:
+    """Lanes per wave (x3tpu's): a multiple of the mesh size covering the
+    blocks, bounded by lanes_per_device (0 = unbounded) a device."""
+    nd = mesh.size if mesh is not None else 1
+    lanes = -(-nblocks // nd) * nd
     if lanes_per_device > 0:
-        lanes = min(lanes, lanes_per_device)
+        lanes = min(lanes, nd * lanes_per_device)
     return max(lanes, 1)
 
 
-def launch_lanes(lane_bytes: int, caps: CodecCaps, device: torch.device,
-                 mem_budget: Optional[int] = None) -> int:
-    """Lanes a launch may hold: ``mem_budget`` bytes (default: MEM_SHARE of
-    the card's total memory, so the count never depends on what else
-    holds memory; on the CPU, no bound) over ``lane_bytes``, the bytes one
-    lane takes (``driver.encoder_lane_bytes`` / ``decoder_lane_bytes``).
-    x3tpu fits its lanes to the chip with ``set_active_lanes`` and
-    sub-batches; here a wave runs as consecutive launches of at most this
-    many lanes.  Raises LaunchMemoryError when one lane does not fit:
-    capacities are never cut to make it."""
-    if mem_budget is None:
-        if device.type != "cuda":
-            return 1 << 30
-        mem_budget = int(MEM_SHARE * torch.cuda.get_device_properties(
-            device).total_memory)
-    lanes = mem_budget // lane_bytes
-    if lanes < 1:
-        raise LaunchMemoryError(
-            f"one lane needs {lane_bytes} bytes of device memory at {caps}, "
-            f"more than a launch may take ({mem_budget} bytes)")
-    return lanes
-
-
-def _launches(lanes: int, per: int, launch):
-    """Run ``launch(lo, hi)`` over lanes [0, lanes) in slices of at most
-    ``per`` and join the results (tensors, then the Overflow) in lane
-    order; one launch (no lanes: one empty launch) is returned as it is."""
-    outs = [launch(lo, min(lo + per, lanes))
-            for lo in range(0, max(lanes, 1), per)]
-    if len(outs) == 1:
-        return outs[0]
-    joined = [torch.cat([o[k] for o in outs]) for k in range(4)]
-    overflow = codec.Overflow(*(torch.cat([getattr(o[4], f) for o in outs])
-                                for f in codec.Overflow._fields))
-    return (*joined, overflow)
-
-
-def _encode_one_device(text: np.ndarray, tlen: np.ndarray, params: X3Params,
-                       caps: CodecCaps, device: torch.device, seeds=None,
-                       mem_budget: Optional[int] = None):
-    """Encode one packed wave on ``device``: the CUDA kernel for a CUDA
-    device, the plain PyTorch encoder for the CPU; in launches of at most
-    :func:`launch_lanes` lanes each."""
-    per = launch_lanes(driver.encoder_lane_bytes(params, caps), caps, device,
-                       mem_budget)
-
-    def launch(lo, hi):
-        text_t = torch.from_numpy(text[lo:hi]).to(device)
-        tlen_t = torch.from_numpy(tlen[lo:hi]).to(device)
-        if device.type == "cuda":
-            return driver.encode_blocks_cuda(text_t, tlen_t, params, caps,
-                                             seeds)
-        return codec.encode_blocks_chunked(text_t, tlen_t, params, caps,
-                                           seeds)
-
-    return _launches(len(tlen), per, launch)
-
-
-def _decode_one_device(words: np.ndarray, byte_lens: np.ndarray,
-                       caps: CodecCaps, device: torch.device, seeds=None,
-                       mem_budget: Optional[int] = None):
-    """Decode one packed wave (``words`` u32 [L, IW]) on ``device``: the
-    CUDA kernel for a CUDA device, the plain PyTorch decoder for the CPU;
-    in launches of at most :func:`launch_lanes` lanes each."""
-    per = launch_lanes(driver.decoder_lane_bytes(caps, words.shape[1]), caps,
-                       device, mem_budget)
-
-    def launch(lo, hi):
-        if device.type == "cuda":
-            return driver.decode_blocks_cuda(
-                torch.from_numpy(words[lo:hi].view(np.int32)).to(device),
-                torch.from_numpy(byte_lens[lo:hi]).to(device), caps, seeds)
-        return codec.decode_blocks_chunked(
-            torch.from_numpy(words[lo:hi].astype(np.int64)),
-            torch.from_numpy(byte_lens[lo:hi]), caps, seeds)
-
-    return _launches(len(byte_lens), per, launch)
+def _wave_mesh(mesh: Optional[meshmod.Mesh], device) -> meshmod.Mesh:
+    """The mesh a wave runs on: ``mesh``, whose entries must be of
+    ``device``'s type, or ``device`` alone."""
+    dev = resolve_device(device)
+    if mesh is None:
+        return meshmod.single(dev)
+    if any(d.type != dev.type for d in mesh.devices):
+        raise ValueError(f"x3tpu_torch: device={str(device)!r} beside a "
+                         f"mesh of {[str(d) for d in mesh.devices]}")
+    return mesh
 
 
 def _retry_caps(caps: CodecCaps, flags, out_field: str) -> CodecCaps:
@@ -265,22 +197,25 @@ def encode_wave(
     device="cuda",
     seeds=None,
     mem_budget: Optional[int] = None,
+    mesh: Optional[meshmod.Mesh] = None,
 ) -> RunResult:
     """Encode one wave of blocks with capacity auto-retry: any lane
-    overflow re-runs the wave at doubled capacities, up to MAX_RETRIES
-    times (the output stays the exact reference-format stream).  Every
-    lane starts from the dictionary ``seeds`` (strs u8 [K, 32], lens i32
-    [K]; :func:`seeds_to_arrays`) where given.  Each attempt runs as
-    launches of at most :func:`launch_lanes` lanes (``mem_budget``); the
-    split changes no stream."""
-    dev = resolve_device(device)
+    overflow, in any lane group, re-runs the wave at doubled capacities,
+    up to MAX_RETRIES times (the output stays the exact reference-format
+    stream).  Every lane starts from the dictionary ``seeds`` (strs u8
+    [K, 32], lens i32 [K]; :func:`seeds_to_arrays`) where given.  The
+    wave runs on ``device``, or over ``mesh`` (padded with empty blocks to
+    a multiple of its size); each attempt runs as launches of at most
+    ``mesh.launch_lanes`` lanes (``mem_budget`` bytes a launch).  Neither the
+    mesh nor the split changes a stream."""
+    mesh = _wave_mesh(mesh, device)
     nblocks = len(blocks_in)
-    lanes = _wave_lanes(nblocks)
+    lanes = _wave_lanes(nblocks, mesh)
     padded = list(blocks_in) + [b""] * (lanes - nblocks)
     for attempt in range(MAX_RETRIES + 1):
         text, tlen = codec.pack_blocks(padded, params, caps)
-        words, byte_lens, counts, sizes, overflow = _encode_one_device(
-            text, tlen, params, caps, dev, seeds, mem_budget)
+        words, byte_lens, counts, sizes, overflow = meshmod.encode_sharded(
+            text, tlen, params, caps, mesh, seeds, mem_budget)
         try:
             codec._check_overflow(overflow)
             break
@@ -289,9 +224,8 @@ def encode_wave(
                 raise
             caps = _retry_caps(caps, e.flags, "out_words_factor")
     payloads = codec.streams_from_words(words, byte_lens, nblocks)
-    stats = CodecStats.from_arrays(
-        counts[:nblocks].cpu().numpy(), sizes[:nblocks].cpu().numpy()
-    )
+    stats = CodecStats.from_arrays(counts[:nblocks].numpy(),
+                                   sizes[:nblocks].numpy())
     return RunResult(payloads, stats)
 
 
@@ -302,30 +236,34 @@ def decode_wave(
     device="cuda",
     seeds=None,
     mem_budget: Optional[int] = None,
+    mesh: Optional[meshmod.Mesh] = None,
 ) -> RunResult:
     """Decode one wave of streams with capacity auto-retry: an output
     overflow doubles ``block_bytes``, any overflow doubles the state caps,
-    up to MAX_RETRIES times.  ``seeds`` must be the encoder's.  Each
-    attempt runs as launches of at most :func:`launch_lanes` lanes
-    (``mem_budget``).  A stream
-    shorter than the shortest valid one (MIN_STREAM bytes), a corrupt
-    stream, and a block whose decoded length is not its ``orig_lens`` entry
-    (None: any length) raise ValueError."""
-    dev = resolve_device(device)
+    up to MAX_RETRIES times.  ``seeds`` must be the encoder's.  The wave
+    runs on ``device``, or over ``mesh``, its pad lanes holding
+    EMPTY_STREAM (x3tpu's pad); each attempt runs as launches of at most
+    ``mesh.launch_lanes`` lanes (``mem_budget``).  A stream shorter than
+    the shortest valid one (MIN_STREAM bytes), a corrupt stream, and a
+    block whose decoded length is not its ``orig_lens`` entry (None: any
+    length) raise ValueError."""
+    mesh = _wave_mesh(mesh, device)
     nblocks = len(payloads)
     if any(len(s) < MIN_STREAM for s in payloads):
         raise ValueError(f"malformed stream: shorter than {MIN_STREAM} "
                          f"bytes")
-    iw = max(1, max((len(s) + 3) // 4 for s in payloads))
-    words = np.zeros((nblocks, iw), np.uint32)
-    byte_lens = np.zeros((nblocks,), np.int32)
-    for i, s in enumerate(payloads):
+    lanes = _wave_lanes(nblocks, mesh)
+    streams = list(payloads) + [EMPTY_STREAM] * (lanes - nblocks)
+    iw = max(1, max((len(s) + 3) // 4 for s in streams))
+    words = np.zeros((lanes, iw), np.uint32)
+    byte_lens = np.zeros((lanes,), np.int32)
+    for i, s in enumerate(streams):
         arr = np.frombuffer(s + b"\x00" * (-len(s) % 4), "<u4")
         words[i, : len(arr)] = arr
         byte_lens[i] = len(s)
     for attempt in range(MAX_RETRIES + 1):
-        out, out_lens, counts, sizes, overflow = _decode_one_device(
-            words, byte_lens, caps, dev, seeds, mem_budget)
+        out, out_lens, counts, sizes, overflow = meshmod.decode_sharded(
+            words, byte_lens, caps, mesh, seeds, mem_budget)
         try:
             codec._check_overflow(overflow)
             break
@@ -333,8 +271,8 @@ def decode_wave(
             if attempt == MAX_RETRIES:
                 raise
             caps = _retry_caps(caps, e.flags, "block_bytes")
-    out_np = out.cpu().numpy()
-    lens_np = out_lens.cpu().numpy()
+    out_np = out.numpy()
+    lens_np = out_lens.numpy()
     results = []
     for i in range(nblocks):
         n = int(lens_np[i])
@@ -342,9 +280,8 @@ def decode_wave(
             raise ValueError(f"block {i}: decoded {n} bytes, expected "
                              f"{orig_lens[i]}")
         results.append(out_np[i, :n].tobytes())
-    stats = CodecStats.from_arrays(
-        counts[:nblocks].cpu().numpy(), sizes[:nblocks].cpu().numpy()
-    )
+    stats = CodecStats.from_arrays(counts[:nblocks].numpy(),
+                                   sizes[:nblocks].numpy())
     return RunResult(results, stats)
 
 
@@ -360,10 +297,16 @@ def compress(
     journal_path: Optional[str] = None,
     lanes_per_device: int = 32,
     device="cuda",
+    mesh: Optional[meshmod.Mesh] = None,
+    force_container: bool = False,
 ) -> bytes:
-    """Compress ``data``.  Single block -> raw reference-format stream;
-    multiple blocks -> X3TC container with per-block reference-format
-    payloads (``x3tpu_torch.parallel.blocks``).
+    """Compress ``data``.  Single block -> raw reference-format stream
+    (``force_container``: an X3TC container of one block); multiple blocks
+    -> X3TC container with per-block reference-format payloads
+    (``x3tpu_torch.parallel.blocks``).  Waves of ``lanes_per_device``
+    blocks a device run on ``device`` or over ``mesh``
+    (``x3tpu_torch.parallel.mesh.make_mesh``); neither changes the
+    output.
 
     ``dict_seed`` (x3tpu's extension, no reference counterpart) trains a
     seed dictionary of at most ``seed_k`` fragments on a strided sample of
@@ -380,11 +323,12 @@ def compress(
             min(block_bytes, max(len(max(parts, key=len)), 1024)),
             window=params.window,
         )
-    wave = _wave_lanes(len(parts), lanes_per_device)
+    wave = _wave_lanes(len(parts), mesh, lanes_per_device)
     journal = None
     if journal_path is not None:
-        # the wave width is in the fingerprint: waves recorded at another
-        # width hold other blocks; the port has no warm start (False)
+        # the wave width (the mesh size times lanes_per_device) is in the
+        # fingerprint: waves recorded at another width hold other blocks;
+        # the port has no warm start (False)
         fp = hashlib.sha256(
             repr((params, block_bytes, dict_seed, seed_k, len(data), wave,
                   False)).encode() + data[:4096] + data[-4096:]
@@ -422,7 +366,7 @@ def compress(
             all_stats = all_stats.merge(done_stats)
             continue
         res = encode_wave(parts[i : i + wave], params, caps, device=device,
-                          seeds=seeds)
+                          seeds=seeds, mesh=mesh)
         if journal is not None:
             journal.record(widx, res.payloads, res.stats)
         all_payloads.extend(res.payloads)
@@ -431,7 +375,7 @@ def compress(
         stats_out.append(all_stats)
     if journal is not None:
         journal.finish()
-    if (len(all_payloads) == 1 and not seed_bytes
+    if (len(all_payloads) == 1 and not force_container and not seed_bytes
             # a raw stream that begins with the container magic would be
             # misread as a container; wrap it
             and not blk.is_container(all_payloads[0])):
@@ -447,13 +391,14 @@ def decompress(
     stats_out: Optional[list] = None,
     lanes_per_device: int = 32,
     device="cuda",
+    mesh: Optional[meshmod.Mesh] = None,
 ) -> bytes:
     """Decompress a raw reference-format stream or an X3TC container (its
-    dictionary seeds included).  The stream is self-describing: no
-    parameter shapes decoding.  A raw stream's output size is not
-    recorded, so its buffer starts from a 64:1 guess (``max_output``
-    overrides it) and grows on overflow.  A malformed stream raises
-    ValueError."""
+    dictionary seeds included), on ``device`` or over ``mesh``.  The
+    stream is self-describing: no parameter shapes decoding.  A raw
+    stream's output size is not recorded, so its buffer starts from a
+    64:1 guess (``max_output`` overrides it) and grows on overflow.  A
+    malformed stream raises ValueError."""
     if blk.is_container(data):
         payloads, orig_lens, block_bytes, seed_bytes = blk.unpack_container(
             data)
@@ -463,10 +408,10 @@ def decompress(
             caps = dataclasses.replace(caps, block_bytes=block_bytes)
         out_parts: List[bytes] = []
         all_stats = CodecStats.zero()
-        wave = _wave_lanes(len(payloads), lanes_per_device)
+        wave = _wave_lanes(len(payloads), mesh, lanes_per_device)
         for i in range(0, len(payloads), wave):
             res = decode_wave(payloads[i : i + wave], orig_lens[i : i + wave],
-                              caps, device=device, seeds=seeds)
+                              caps, device=device, seeds=seeds, mesh=mesh)
             out_parts.extend(res.payloads)
             all_stats = all_stats.merge(res.stats)
         if stats_out is not None:
@@ -476,7 +421,7 @@ def decompress(
     caps = caps or caps_for_block(guess)
     if caps.block_bytes < guess:
         caps = dataclasses.replace(caps, block_bytes=guess)
-    res = decode_wave([data], [None], caps, device=device)
+    res = decode_wave([data], [None], caps, device=device, mesh=mesh)
     if stats_out is not None:
         stats_out.append(res.stats)
     return res.payloads[0]

@@ -2,14 +2,18 @@
 ``x3tpu.vm.driver``: builds ``csrc/x3_encoder.cu`` and ``csrc/x3_decoder.cu``
 with nvcc at first use (one nvcc per source, run side by side), loads them
 with ctypes, checks the inputs, allocates state and outputs, and launches
-one kernel per wave.
+one kernel per call.
 
 :func:`encode_blocks_cuda` has the contract of
 ``x3tpu_torch.codec.encode_blocks_chunked``: (words [L, out_words] u32 in
 int64, byte_lens, counts, sizes, Overflow); :func:`decode_blocks_cuda` that
 of ``codec.decode_blocks_chunked``: (out u8 [L, block_bytes], out_lens,
-counts, sizes, Overflow).  Nothing falls back: a failed build or launch
-raises, and so does a tensor that is not on a CUDA device.
+counts, sizes, Overflow).  Each is two steps: :func:`launch_encode` /
+:func:`launch_decode` launch on a stream and return at once (a
+:class:`Launch`), and :meth:`Launch.result` waits, checks the flags and
+returns the tuple; the mesh (``x3tpu_torch.parallel.mesh``) launches every
+lane group before it reads any result.  Nothing falls back: a failed
+build or launch raises, and so does a tensor that is not on a CUDA device.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -312,11 +316,11 @@ def seed_scratch(scratch: torch.Tensor, offsets: Dict[str, int], seeds,
     k = int(seeds[0].shape[0])
     dev = scratch.device
     strs = torch.as_tensor(seeds[0], dtype=torch.uint8).contiguous()
-    words = strs.view(torch.int32).reshape(-1).to(dev)   # K x 8 LE words
+    words = to_device(strs.view(torch.int32).reshape(-1), dev)  # K x 8 words
     ii = torch.arange(k, dtype=torch.int32, device=dev)
     planes = {
         "strs": words,
-        "lens": torch.as_tensor(seeds[1]).to(device=dev, dtype=torch.int32),
+        "lens": to_device(torch.as_tensor(seeds[1], dtype=torch.int32), dev),
         "rank_of": ii, "tag_of": ii,
         "ix": ii + 1 if cumulative else torch.ones_like(ii),
     }
@@ -370,6 +374,37 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def to_device(a, dev: torch.device) -> torch.Tensor:
+    """``a`` (an array or a CPU tensor) on ``dev``.  For a CUDA device the
+    copy goes through pinned memory and is queued on the current stream
+    without waiting for it: a copy from pageable memory would wait for the
+    stream's earlier work, so a group's second launch could not be queued
+    before its first had run."""
+    t = torch.as_tensor(a)
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+@dataclasses.dataclass
+class Launch:
+    """A kernel launch in flight on ``stream``: its outputs, still being
+    written, and the check that reads its flags.  Nothing waits for the
+    card until :meth:`result`, so launches on several streams or devices
+    run side by side."""
+
+    outs: tuple
+    stream: torch.cuda.Stream
+    finish: Callable
+
+    def result(self):
+        """Wait for the launch, raise as its flags say, and return the
+        plain version's tuple (on the launch's device and stream)."""
+        with torch.cuda.device(self.stream.device), \
+                torch.cuda.stream(self.stream):
+            return self.finish(*self.outs)
+
+
 def encode_blocks_cuda(text: torch.Tensor, tlen: torch.Tensor,
                        params: X3Params, caps: CodecCaps, seeds=None):
     """Encode L blocks with kernel K1: ``text`` u8 [L, TB] from
@@ -378,7 +413,9 @@ def encode_blocks_cuda(text: torch.Tensor, tlen: torch.Tensor,
     [K]) where given.  Every lane's state lives in a zeroed scratch tensor
     allocated here (with the seeds written in) and, for the planes
     :func:`smem_plan` picks, in the CTA's shared memory, so new capacities
-    only reallocate: the kernel takes them at run time."""
+    only reallocate: the kernel takes them at run time.  Launches on the
+    current stream and waits for the result (:func:`launch_encode` does
+    not wait)."""
     return _encode_with(text, tlen, params, caps, seeds=seeds)
 
 
@@ -390,42 +427,73 @@ def _encode_with(text: torch.Tensor, tlen: torch.Tensor, params: X3Params,
     path's); ``phases`` (i64 [L, slots]) only with a library built with
     -DX3_PHASES (tools/k1_phases.py); ``smem_mask`` in place of
     :func:`smem_plan`'s (0: every plane global; tools/kernel_ab.py)."""
+    lanes = _check_encode(text, tlen, params, caps)
+    if lanes and int(tlen.max()) > caps.block_bytes:
+        raise ValueError("a block is larger than caps.block_bytes")
+    return launch_encode(text, tlen, params, caps, seeds, lib=lib,
+                         phases=phases, smem_mask=smem_mask).result()
+
+
+def _check_encode(text, tlen, params: X3Params, caps: CodecCaps) -> int:
     lanes = text.shape[0] if isinstance(text, torch.Tensor) else 0
     _check("text", text, torch.uint8,
            (lanes, codec.text_bytes(params, caps)))
     _check("tlen", tlen, torch.int32, (lanes,))
     if tlen.device != text.device:
         raise ValueError("text and tlen must be on the same device")
-    if lanes and int(tlen.max()) > caps.block_bytes:
-        raise ValueError("a block is larger than caps.block_bytes")
+    return lanes
+
+
+def launch_encode(text: torch.Tensor, tlen: torch.Tensor, params: X3Params,
+                  caps: CodecCaps, seeds=None,
+                  stream: Optional[torch.cuda.Stream] = None,
+                  lib: Optional[ctypes.CDLL] = None,
+                  phases: Optional[torch.Tensor] = None,
+                  smem_mask: Optional[int] = None) -> Launch:
+    """Allocate, seed and launch K1 on ``stream`` (default: the current
+    stream of ``text``'s device) without waiting for it; the inputs as
+    :func:`encode_blocks_cuda`'s, whose bound on ``tlen`` the caller has
+    checked on the host (``codec.pack_blocks``).  Every tensor is made on
+    ``stream``, so the allocator reuses a launch's scratch only for later
+    work of the same stream."""
+    lanes = _check_encode(text, tlen, params, caps)
     lib = lib or _load()["encoder"]
     dev = text.device
     with torch.cuda.device(dev):
-        scratch, k = _seeded_scratch(lanes, caps, dev, seeds, False, lib)
-        words = torch.zeros((lanes, caps.out_words), dtype=torch.int32,
-                            device=dev)
-        byte_lens = torch.empty((lanes,), dtype=torch.int32, device=dev)
-        counts = torch.empty((lanes, 5), dtype=torch.int32, device=dev)
-        sizes = torch.empty((lanes, 5), dtype=torch.float32, device=dev)
-        flags = torch.empty((lanes,), dtype=torch.int32, device=dev)
-        if lanes:
-            extra = () if phases is None else (phases.data_ptr(),)
-            rc = lib.x3_encode(
-                text.data_ptr(), tlen.data_ptr(), lanes, text.shape[1],
-                params.max_match_count, params.window, params.magic_factor1,
-                params.magic_factor2, int(params.nl_remap), caps.dict_cap,
-                caps.pair_cap, caps.ctx_items_cap, caps.ctx0_items_cap,
-                caps.ctx_small_cap, caps.ctx_promo_rows, caps.out_words,
-                smem_plan(params, caps).mask if smem_mask is None
-                else smem_mask, k, scratch.data_ptr(),
-                words.data_ptr(), byte_lens.data_ptr(), counts.data_ptr(),
-                sizes.data_ptr(), flags.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream, *extra)
-            if rc != 0:
-                raise RuntimeError(f"x3_encode launch failed: cudaError {rc}")
-            LAUNCHES["encoder"] += 1
-        if bool((flags & OF_STEPS).any()):
-            raise RuntimeError("x3_encode: a lane ran more events than bytes")
+        stream = stream or torch.cuda.current_stream(dev)
+        with torch.cuda.stream(stream):
+            scratch, k = _seeded_scratch(lanes, caps, dev, seeds, False, lib)
+            words = torch.zeros((lanes, caps.out_words), dtype=torch.int32,
+                                device=dev)
+            byte_lens = torch.empty((lanes,), dtype=torch.int32, device=dev)
+            counts = torch.empty((lanes, 5), dtype=torch.int32, device=dev)
+            sizes = torch.empty((lanes, 5), dtype=torch.float32, device=dev)
+            flags = torch.empty((lanes,), dtype=torch.int32, device=dev)
+            if lanes:
+                extra = () if phases is None else (phases.data_ptr(),)
+                rc = lib.x3_encode(
+                    text.data_ptr(), tlen.data_ptr(), lanes, text.shape[1],
+                    params.max_match_count, params.window,
+                    params.magic_factor1, params.magic_factor2,
+                    int(params.nl_remap), caps.dict_cap, caps.pair_cap,
+                    caps.ctx_items_cap, caps.ctx0_items_cap,
+                    caps.ctx_small_cap, caps.ctx_promo_rows, caps.out_words,
+                    smem_plan(params, caps).mask if smem_mask is None
+                    else smem_mask, k, scratch.data_ptr(),
+                    words.data_ptr(), byte_lens.data_ptr(),
+                    counts.data_ptr(), sizes.data_ptr(), flags.data_ptr(),
+                    stream.cuda_stream, *extra)
+                if rc != 0:
+                    raise RuntimeError(f"x3_encode launch failed: "
+                                       f"cudaError {rc}")
+                LAUNCHES["encoder"] += 1
+    return Launch((words, byte_lens, counts, sizes, flags), stream,
+                  _finish_encode)
+
+
+def _finish_encode(words, byte_lens, counts, sizes, flags):
+    if bool((flags & OF_STEPS).any()):
+        raise RuntimeError("x3_encode: a lane ran more events than bytes")
     return (words.to(torch.int64) & 0xFFFFFFFF, byte_lens.to(torch.int64),
             counts.to(torch.int64), sizes, _overflow(flags))
 
@@ -447,7 +515,9 @@ def decode_blocks_cuda(words: torch.Tensor, byte_lens: torch.Tensor,
     allocated here (with the seeds written in).  A corrupt stream (a
     symbol value past its model's total) and a lane still decoding after
     block_bytes + 1 events (a valid stream emits a byte with every event
-    but EOF) raise ValueError; nothing hangs on a corrupt stream."""
+    but EOF) raise ValueError; nothing hangs on a corrupt stream.
+    Launches on the current stream and waits for the result
+    (:func:`launch_decode` does not wait)."""
     return _decode_with(words, byte_lens, caps, seeds=seeds)
 
 
@@ -457,6 +527,18 @@ def _decode_with(words: torch.Tensor, byte_lens: torch.Tensor,
     """:func:`decode_blocks_cuda` through ``lib`` (default: the main
     path's); ``phases`` (i64 [L, slots]) only with a library built with
     -DX3_DEC_PHASES (tools/k2_phases.py)."""
+    return launch_decode(words, byte_lens, caps, seeds, lib=lib,
+                         phases=phases).result()
+
+
+def launch_decode(words: torch.Tensor, byte_lens: torch.Tensor,
+                  caps: CodecCaps, seeds=None,
+                  stream: Optional[torch.cuda.Stream] = None,
+                  lib: Optional[ctypes.CDLL] = None,
+                  phases: Optional[torch.Tensor] = None) -> Launch:
+    """Allocate, seed and launch K2 on ``stream`` (default: the current
+    stream of ``words``' device) without waiting for it; the inputs and
+    the errors of :meth:`Launch.result` as :func:`decode_blocks_cuda`'s."""
     lanes = words.shape[0] if isinstance(words, torch.Tensor) else 0
     iw = words.shape[1] if lanes else 0
     _check("words", words, torch.int32, (lanes, iw))
@@ -468,32 +550,40 @@ def _decode_with(words: torch.Tensor, byte_lens: torch.Tensor,
     lib = lib or _load()["decoder"]
     dev = words.device
     with torch.cuda.device(dev):
-        scratch, k = _seeded_scratch(lanes, caps, dev, seeds, True)
-        out = torch.zeros((lanes, caps.block_bytes), dtype=torch.uint8,
-                          device=dev)
-        out_lens = torch.empty((lanes,), dtype=torch.int32, device=dev)
-        counts = torch.empty((lanes, 5), dtype=torch.int32, device=dev)
-        sizes = torch.empty((lanes, 5), dtype=torch.float32, device=dev)
-        flags = torch.empty((lanes,), dtype=torch.int32, device=dev)
-        if lanes:
-            extra = () if phases is None else (phases.data_ptr(),)
-            rc = lib.x3_decode(
-                words.data_ptr(), byte_lens.data_ptr(), lanes, iw,
-                caps.block_bytes, caps.dict_cap, caps.pair_cap,
-                caps.ctx_items_cap, caps.ctx0_items_cap, caps.ctx_small_cap,
-                caps.ctx_promo_rows, k, scratch.data_ptr(), out.data_ptr(),
-                out_lens.data_ptr(), counts.data_ptr(), sizes.data_ptr(),
-                flags.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-                *extra)
-            if rc != 0:
-                raise RuntimeError(f"x3_decode launch failed: cudaError {rc}")
-            LAUNCHES["decoder"] += 1
-        # as the plain decoder: a corrupt symbol on a lane none of whose
-        # capacities overflowed (an overflow is retried), then the bound
-        state = OF_DICT | OF_CTX0 | OF_CTX1 | OF_PAIRS | OF_OUT
-        if bool((((flags & OF_CORRUPT) != 0) & ((flags & state) == 0)).any()):
-            raise codec.corrupt()
-        if bool((flags & OF_STEPS).any()):
-            raise codec.malformed(caps.block_bytes + 1)
+        stream = stream or torch.cuda.current_stream(dev)
+        with torch.cuda.stream(stream):
+            scratch, k = _seeded_scratch(lanes, caps, dev, seeds, True)
+            out = torch.zeros((lanes, caps.block_bytes), dtype=torch.uint8,
+                              device=dev)
+            out_lens = torch.empty((lanes,), dtype=torch.int32, device=dev)
+            counts = torch.empty((lanes, 5), dtype=torch.int32, device=dev)
+            sizes = torch.empty((lanes, 5), dtype=torch.float32, device=dev)
+            flags = torch.empty((lanes,), dtype=torch.int32, device=dev)
+            if lanes:
+                extra = () if phases is None else (phases.data_ptr(),)
+                rc = lib.x3_decode(
+                    words.data_ptr(), byte_lens.data_ptr(), lanes, iw,
+                    caps.block_bytes, caps.dict_cap, caps.pair_cap,
+                    caps.ctx_items_cap, caps.ctx0_items_cap,
+                    caps.ctx_small_cap, caps.ctx_promo_rows, k,
+                    scratch.data_ptr(), out.data_ptr(), out_lens.data_ptr(),
+                    counts.data_ptr(), sizes.data_ptr(), flags.data_ptr(),
+                    stream.cuda_stream, *extra)
+                if rc != 0:
+                    raise RuntimeError(f"x3_decode launch failed: "
+                                       f"cudaError {rc}")
+                LAUNCHES["decoder"] += 1
+    return Launch((out, out_lens, counts, sizes, flags), stream,
+                  functools.partial(_finish_decode, caps.block_bytes))
+
+
+def _finish_decode(block_bytes, out, out_lens, counts, sizes, flags):
+    # as the plain decoder: a corrupt symbol on a lane none of whose
+    # capacities overflowed (an overflow is retried), then the bound
+    state = OF_DICT | OF_CTX0 | OF_CTX1 | OF_PAIRS | OF_OUT
+    if bool((((flags & OF_CORRUPT) != 0) & ((flags & state) == 0)).any()):
+        raise codec.corrupt()
+    if bool((flags & OF_STEPS).any()):
+        raise codec.malformed(block_bytes + 1)
     return (out, out_lens.to(torch.int64), counts.to(torch.int64), sizes,
             _overflow(flags))
