@@ -23,11 +23,23 @@ exit at the first failure:
    lanes of 4 KiB with every lane seeded, with the default shared-memory
    plan and at dict_cap 8192 (every plane in global memory), and K2
    against the plain decoder on those streams;
-6. the raw path: one 16 KiB block compressed to a raw stream and
+6. warm kernels: the seeds and warm-start tape the port's trainer gives
+   on the 8 x 16 KiB blocks of x3tpu_torch.utils.corpus.warm_blocks
+   (their sha256 the recorded ones); K1 against the plain encoder at 8
+   lanes of 4 KiB with every lane warm, with the shared-memory plan
+   holding the hubs and at dict_cap 8192 (every plane global), and K2
+   against the plain decoder on those streams; K1's warm streams of the
+   8 x 16 KiB blocks against x3tpu_torch/testdata/warm_streams.json
+   (written by tools/mb_oracle.py --warm) and back through K2;
+   ``compress(warm_start=True)`` and ``decompress`` at 32 and 128 lanes
+   of 16 KiB, timed, with their ratio beside the seeded and unseeded
+   ones on the same input; and one warm wave over a 2-entry mesh on
+   cuda:0, twice, the one-device wave's streams;
+7. the raw path: one 16 KiB block compressed to a raw stream and
    decompressed on the card, and the golden streams over 2 KiB decoded
    raw, at the capacities a raw decode picks (dict 16384-24576, 8192
    items a context: about 520 MiB of scratch a lane);
-7. the main path at 32 and 128 lanes of 16 KiB, unseeded and with
+8. the main path at 32 and 128 lanes of 16 KiB, unseeded and with
    ``dict_seed=True``: ``x3tpu_torch.compress(..., device="cuda")`` then
    ``x3tpu_torch.decompress(..., device="cuda")``, each run with the
    launch counts set to 0 just before it and read just after: the data
@@ -36,44 +48,44 @@ exit at the first failure:
    every output equal to the first (K1's coder warp and K2's warps hand
    work to each other through shared memory, so a race would show as a
    difference);
-8. the command line: ``python3 -m x3tpu_torch`` compresses and
+9. the command line: ``python3 -m x3tpu_torch`` compresses and
    decompresses a 512 KiB file in 16 KiB blocks with ``--dict-seed`` and
    a 16 KiB file as one raw stream, each to the same bytes;
-9. times: compress and decompress (unseeded and seeded), the seed
+10. times: compress and decompress (unseeded and seeded), the seed
    trainer on the host, each kernel alone, and both plain versions
    against the kernels at 32 lanes of 4 KiB;
-10. MB wave: 32 x 1 MiB of the MB corpus (x3tpu_torch.utils.corpus) at
+11. MB wave: 32 x 1 MiB of the MB corpus (x3tpu_torch.utils.corpus) at
    -t 15 -w 8 and caps_for_block(1 MiB) through compress and decompress:
    every stream equals the reference codec's (its length and sha256 in
    x3tpu_torch/testdata/mb_streams.json, written by tools/mb_oracle.py),
    and the blocks come back; one more encode and decode through the
    wrappers, timed, with equal streams;
-11. MB 16 MiB caps: the first 8 of those blocks under
+12. MB 16 MiB caps: the first 8 of those blocks under
    caps_for_block(16 MiB), the same reference streams;
-12. window 32 KiB: 32 x 256 KiB at -w 32 (dict 6144, 640 items) through
+13. window 32 KiB: 32 x 256 KiB at -w 32 (dict 6144, 640 items) through
    compress (whose attempts at 640 and 1280 items overflow a context row
    and are retried) and decompress, the reference streams and back;
-13. wave split: the MB wave with a device-memory budget of 8 lanes, 4
+14. wave split: the MB wave with a device-memory budget of 8 lanes, 4
    launches each way, the one-launch wave's streams;
-14. MB retry: the MB wave from dict_cap 8192, which some of its blocks
+15. MB retry: the MB wave from dict_cap 8192, which some of its blocks
    outgrow (up to 9 706 entries), retried at caps.scaled(2), the
    reference streams;
-15. MB command line: ``python3 -m x3tpu_torch`` on one 4 MiB file (one
+16. MB command line: ``python3 -m x3tpu_torch`` on one 4 MiB file (one
    raw stream, K1 at dict 24576, retried once: more than 4096 ctx0 rows
    outgrow the small pool, and the retry doubles the pool of promoted
    rows; the decode at a raw stream's 64:1 guess, retried once) and on 32
    MiB in 1 MiB blocks (a container of 32 lanes), each the reference
    stream(s) and back byte for byte; then the 4 MiB lane alone through
    each kernel at the caps where it fits, timed;
-16. mesh: the 32 x 16 KiB main-path wave through ``compress(mesh=)`` and
+17. mesh: the 32 x 16 KiB main-path wave through ``compress(mesh=)`` and
    ``decompress(mesh=)`` over every local card and over a 2-entry mesh
    (cuda:0 twice on a one-card machine, two streams side by side), each
    the one-device wave's streams, one K1 and one K2 launch a lane group,
    and the data back; then the MB wave over the 2-entry mesh with a
    budget of 8 lanes a launch (2 groups x 2 launches each way), the
-   reference streams and the blocks back, timed beside phase 13's 4
+   reference streams and the blocks back, timed beside phase 14's 4
    launches in series;
-17. distributed: two processes (this script again, ``--dist-worker``),
+18. distributed: two processes (this script again, ``--dist-worker``),
    each on cuda:<rank % count>, joined over gloo on localhost, each
    encoding its half of a 64 x 16 KiB wave with K1; rank 0 gathers the
    payloads in lane order, which must be the one-process wave's, and K2
@@ -126,7 +138,7 @@ def bound_ms(nbytes: int) -> float:
 
 
 def dist_worker(rank: int, world: int, port: int, outdir: str) -> int:
-    """Phase 17's process ``rank`` of ``world``: on cuda:<rank % count>,
+    """Phase 18's process ``rank`` of ``world``: on cuda:<rank % count>,
     join the gloo group at localhost:``port``, encode lanes ``rank *
     64 / world`` on of the 64 x 16 KiB wave with K1, and gather every
     payload on rank 0, which decodes them with K2, checks the blocks and
@@ -200,8 +212,10 @@ def main() -> int:
 
     import x3tpu_torch
     from x3tpu_torch import codec, host
+    from x3tpu_torch import warm as wm
     from x3tpu_torch.config import CodecCaps, X3Params
     from x3tpu_torch.parallel import blocks as blk
+    from x3tpu_torch.parallel import mesh as meshmod
     from x3tpu_torch.parallel import runtime
     from x3tpu_torch.utils import corpus as mbc
     from x3tpu_torch.vm import driver
@@ -258,17 +272,18 @@ def main() -> int:
                 raise AssertionError(f"{label}: overflow flag {f} differs")
         return err
 
-    def against_plain(label, blocks, params, caps, seeds=None):
+    def against_plain(label, blocks, params, caps, seeds=None, warm=None):
         """K1 and the plain encoder on the same CUDA tensors (every lane
-        from ``seeds`` where given).  Returns the kernel's result and both
-        times."""
+        from ``seeds`` and ``warm`` where given).  Returns the kernel's
+        result and both times."""
         text, tlen = codec.pack_blocks(blocks, params, caps)
         text, tlen = torch.from_numpy(text).to(dev), torch.from_numpy(tlen).to(dev)
         ours, kernel_s = timed(
-            lambda: driver.encode_blocks_cuda(text, tlen, params, caps, seeds))
+            lambda: driver.encode_blocks_cuda(text, tlen, params, caps, seeds,
+                                              warm))
         ref, plain_s = timed(
             lambda: codec.encode_blocks_chunked(text, tlen, params, caps,
-                                                seeds))
+                                                seeds, warm))
         err = same(label, "encoder", ours, ref,
                    ("words", "byte_lens", "counts"))
         print(f"{label}: {len(blocks)} lanes match the plain encoder "
@@ -291,15 +306,18 @@ def main() -> int:
         return (torch.from_numpy(words.view(np.int32)).to(dev),
                 torch.from_numpy(lens).to(dev))
 
-    def against_plain_dec(label, words, byte_lens, caps, seeds=None):
+    def against_plain_dec(label, words, byte_lens, caps, seeds=None,
+                          warm=None):
         """K2 and the plain decoder on the same CUDA tensors (``words``
-        i32 [L, IW], the streams' u32 words; every lane from ``seeds``
-        where given).  Returns the kernel's result and both times."""
+        i32 [L, IW], the streams' u32 words; every lane from ``seeds`` and
+        ``warm`` where given).  Returns the kernel's result and both
+        times."""
         ours, kernel_s = timed(
-            lambda: driver.decode_blocks_cuda(words, byte_lens, caps, seeds))
+            lambda: driver.decode_blocks_cuda(words, byte_lens, caps, seeds,
+                                              warm))
         ref, plain_s = timed(lambda: codec.decode_blocks_chunked(
             words.to(torch.int64) & 0xFFFFFFFF, byte_lens.to(torch.int64),
-            caps, seeds))
+            caps, seeds, warm))
         err = same(label, "decoder", ours, ref, ("out", "out_lens", "counts"))
         print(f"{label}: {words.shape[0]} lanes match the plain decoder "
               f"(kernel {kernel_s:.3f} s, plain {plain_s:.3f} s, "
@@ -497,7 +515,204 @@ def main() -> int:
           f"{int(unseeded[2][:, 2].sum())} unseeded", flush=True)
     phase("seeded kernels vs plain", t0)
 
-    # ------------------------------------------------------- 6. raw path
+    # ------------------------------------------------------ 6. warm kernels
+    t0 = time.perf_counter()
+    warm_ref = json.loads(mbc.WARM_ORACLE.read_text())
+
+    def train_warm(blocks):
+        """compress(warm_start=True)'s seeds, tape and warm state for
+        ``blocks``: the strided sample, at most dict_cap / 2 seeds, the
+        tape through its container bytes."""
+        strs, lens, tape = host.train_tape(mbc.warm_sample(blocks), params,
+                                           min(256, caps.dict_cap // 2))
+        seed_bytes = [strs[i, : lens[i]].tobytes() for i in range(len(lens))]
+        tape, _ = wm.decode_tape(wm.encode_tape(tape))
+        return (seed_bytes, tape, runtime.seeds_to_arrays(seed_bytes),
+                wm.pack(wm.replay(tape, len(seed_bytes))))
+
+    warm_blocks = mbc.warm_blocks()
+    (wseed_bytes, wtape, wseeds, wstate), wtrain_s = timed(
+        lambda: train_warm(warm_blocks))
+    digests = mbc.warm_digests(wseed_bytes, wtape)
+    if digests != {k: warm_ref[k] for k in digests}:
+        raise AssertionError("warm: the trained seeds or tape are not the "
+                             "recorded ones")
+    print(f"warm: {len(wseed_bytes)} seeds and a tape of {len(wtape)} "
+          f"entries trained on the host in {wtrain_s:.3f} s (the recorded "
+          f"sha256); {wstate.pair_n} pairs, hubs of "
+          f"{len(wstate.hub0_tags)} and {len(wstate.hub1_tags)} items, "
+          f"{len(wstate.ctx0_idx)} ctx0 and {len(wstate.ctx1_idx)} ctx1 "
+          f"rows", flush=True)
+    hubs = {"f1_hub_tags", "f1_hub_freqs", "f1_hub_pair", "f0_hub_tags",
+            "f0_hub_freqs", "f1_n"}
+    if not hubs <= set(driver.smem_plan(params, caps).offsets):
+        raise AssertionError("warm: the plan does not hold the hubs in "
+                             "shared memory")
+    if len(warm_blocks) != SEED_LANES:
+        raise AssertionError(f"warm: {len(warm_blocks)} blocks, want "
+                             f"{SEED_LANES}")
+    warm_in = [b[:PLAIN_BLOCK] for b in warm_blocks]
+    warm_out, _, _ = against_plain(
+        f"warm K1 {SEED_LANES} x {PLAIN_KIB}, hubs in shared memory",
+        warm_in, params, caps, wseeds, wstate)
+    # the plain encoder's output depends on the capacities only through
+    # its flags, which equal K1's here (none): the dict-8192 K1 run is
+    # held to the same plain result, once more on the same inputs
+    wide_run = driver.encode_blocks_cuda(
+        *(torch.from_numpy(a).to(dev)
+          for a in codec.pack_blocks(warm_in, params, wide_caps)),
+        params, wide_caps, wseeds, wstate)
+    same(f"warm K1 {SEED_LANES} x {PLAIN_KIB}, every plane global",
+         "encoder", wide_run, warm_out, ("words", "byte_lens", "counts"))
+    if warm_out[4].any_flag().any():
+        raise AssertionError("warm K1: a lane overflowed")
+    print(f"warm K1 {SEED_LANES} x {PLAIN_KIB}, every plane global "
+          f"(dict_cap 8192): the same streams, counts and flags", flush=True)
+    words, byte_lens = as_i32(warm_out[0]), warm_out[1].to(torch.int32)
+    wdec, _, _ = against_plain_dec(f"warm K2 {SEED_LANES} x {PLAIN_KIB}",
+                                   words, byte_lens, caps, wseeds, wstate)
+    for i, b in enumerate(warm_in):
+        if wdec[0][i, : wdec[1][i]].cpu().numpy().tobytes() != b:
+            raise AssertionError(f"warm K2: block {i} does not round trip")
+    if not torch.equal(wdec[2], warm_out[2]):
+        raise AssertionError("warm K2: event counts differ from K1's")
+    # the recorded reference: 8 x 16 KiB, K1 on the card
+    text, tlen = (torch.from_numpy(a).to(dev)
+                  for a in codec.pack_blocks(warm_blocks, params, caps))
+    wenc = driver.encode_blocks_cuda(text, tlen, params, caps, wseeds, wstate)
+    wstreams = codec.streams_from_words(wenc[0], wenc[1], len(warm_blocks))
+    for i, (got, ref) in enumerate(zip(wstreams, warm_ref["streams"])):
+        if (len(got) != ref["len"]
+                or hashlib.sha256(got).hexdigest() != ref["sha256"]):
+            raise AssertionError(f"warm K1: stream {i} ({len(got)} B) is "
+                                 f"not the reference stream "
+                                 f"({ref['len']} B)")
+    words, byte_lens = pack_streams(wstreams)
+    wback = driver.decode_blocks_cuda(words, byte_lens, caps, wseeds, wstate)
+    for i, b in enumerate(warm_blocks):
+        if wback[0][i, : wback[1][i]].cpu().numpy().tobytes() != b:
+            raise AssertionError(f"warm K2: 16 KiB block {i} does not "
+                                 f"round trip")
+    if not torch.equal(wback[2], wenc[2]):
+        raise AssertionError("warm K2: 16 KiB event counts differ")
+    plain_seeded = driver.encode_blocks_cuda(text, tlen, params, caps,
+                                             wseeds)
+    print(f"warm K1 {len(warm_blocks)} x 16 KiB: the {len(wstreams)} "
+          f"reference streams ({sum(map(len, wstreams))} B; seeds alone "
+          f"{int(plain_seeded[1].sum())} B), and back through K2",
+          flush=True)
+
+    # compress(warm_start=True) and decompress at the main path's shapes,
+    # each run with the counts set to 0 just before it and read after
+    warm_rows, warm_launches = {}, {"encoder": 0, "decoder": 0}
+    warm_blobs = {}
+    for lanes in shapes:
+        row, enc_stats = {}, []
+        for what, fn in (
+                ("compress", lambda: x3tpu_torch.compress(
+                    data[lanes], block_bytes=BLOCK, lanes_per_device=lanes,
+                    warm_start=True, stats_out=enc_stats, device="cuda")),
+                ("trainer", lambda: train_warm(
+                    blk.split_blocks(data[lanes], BLOCK)))):
+            runs = []
+            for _ in range(3):
+                driver.LAUNCHES["encoder"] = driver.LAUNCHES["decoder"] = 0
+                out, secs = timed(fn)
+                runs.append(secs)
+                if what == "compress":
+                    if driver.LAUNCHES["encoder"] < 1:
+                        raise AssertionError(f"warm compress {lanes}: no K1 "
+                                             f"launch")
+                    warm_launches["encoder"] += driver.LAUNCHES["encoder"]
+                    warm_blobs[lanes] = out
+            row[what], row[what + "_runs"] = statistics.median(runs), runs
+        blob = warm_blobs[lanes]
+        payloads, _, _, seed_bytes, tape = blk.unpack_container(blob)
+        if not seed_bytes or not tape or len(payloads) != lanes:
+            raise AssertionError(f"warm compress {lanes}: container without "
+                                 f"seeds or tape")
+        runs = []
+        for _ in range(3):
+            dec_stats = []
+            driver.LAUNCHES["encoder"] = driver.LAUNCHES["decoder"] = 0
+            back, secs = timed(lambda: x3tpu_torch.decompress(
+                blob, lanes_per_device=lanes, stats_out=dec_stats,
+                device="cuda"))
+            runs.append(secs)
+            if back != data[lanes] or driver.LAUNCHES["decoder"] < 1:
+                raise AssertionError(f"warm decompress {lanes}: "
+                                     f"{len(back)} B in "
+                                     f"{driver.LAUNCHES['decoder']} K2 "
+                                     f"launches")
+            warm_launches["decoder"] += driver.LAUNCHES["decoder"]
+        row["decompress"], row["decompress_runs"] = (statistics.median(runs),
+                                                     runs)
+        if not np.array_equal(enc_stats[-1].events, dec_stats[0].events):
+            raise AssertionError(f"warm {lanes}: decode counts differ from "
+                                 f"encode counts")
+        sizes = {kind: len(x3tpu_torch.compress(
+            data[lanes], block_bytes=BLOCK, lanes_per_device=lanes,
+            dict_seed=kind == "seeded", device="cuda"))
+            for kind in ("unseeded", "seeded")}
+        row["ratio"] = len(blob) / len(data[lanes])
+        row["ratio_seeded"] = sizes["seeded"] / len(data[lanes])
+        row["ratio_unseeded"] = sizes["unseeded"] / len(data[lanes])
+        # the kernels alone on the wave, warm
+        lstate = train_warm(blk.split_blocks(data[lanes], BLOCK))
+        text, tlen = (torch.from_numpy(a).to(dev) for a in codec.pack_blocks(
+            blk.split_blocks(data[lanes], BLOCK), params, caps))
+        row["K1"], row["K1_runs"] = kernel_ms(
+            lambda: driver.encode_blocks_cuda(text, tlen, params, caps,
+                                              lstate[2], lstate[3]))
+        words, byte_lens = pack_streams(payloads)
+        row["K2"], row["K2_runs"] = kernel_ms(
+            lambda: driver.decode_blocks_cuda(words, byte_lens, caps,
+                                              lstate[2], lstate[3]))
+        warm_rows[lanes] = row
+        mb = len(data[lanes]) / 1e6
+        print(f"warm {lanes} x 16 KiB: compress {row['compress']:.4f} s "
+              f"({mb / row['compress']:.3f} MB/s, the trainer's "
+              f"{row['trainer']:.4f} s on the host included), decompress "
+              f"{row['decompress']:.4f} s ({mb / row['decompress']:.3f} "
+              f"MB/s); K1 {row['K1']:.3f} ms, K2 {row['K2']:.3f} ms; ratio "
+              f"{row['ratio']:.4f} (seeds alone {row['ratio_seeded']:.4f}, "
+              f"unseeded {row['ratio_unseeded']:.4f}); runs "
+              f"{[round(r, 4) for r in row['compress_runs']]} / "
+              f"{[round(r, 4) for r in row['decompress_runs']]} / "
+              f"{[round(r, 4) for r in row['trainer_runs']]} s, "
+              f"{[round(r, 3) for r in row['K1_runs']]} / "
+              f"{[round(r, 3) for r in row['K2_runs']]} ms", flush=True)
+
+    # one warm wave over two entries on cuda:0 (two streams), twice
+    two = meshmod.make_mesh(devices=["cuda:0", "cuda:0"])
+    blocks32 = blk.split_blocks(data[32], BLOCK)
+    lstate = train_warm(blocks32)
+    one_dev = runtime.encode_wave(blocks32, params, caps, device="cuda",
+                                  seeds=lstate[2], warm=lstate[3]).payloads
+    if one_dev != blk.unpack_container(warm_blobs[32])[0]:
+        raise AssertionError("warm wave: not compress's payloads")
+    warm_mesh_launches = {"encoder": 0, "decoder": 0}
+    for run in range(2):
+        driver.LAUNCHES["encoder"] = driver.LAUNCHES["decoder"] = 0
+        res = runtime.encode_wave(blocks32, params, caps, device="cuda",
+                                  seeds=lstate[2], mesh=two, warm=lstate[3])
+        back = runtime.decode_wave(res.payloads, [len(b) for b in blocks32],
+                                   caps, device="cuda", seeds=lstate[2],
+                                   mesh=two, warm=lstate[3])
+        if res.payloads != one_dev or back.payloads != blocks32:
+            raise AssertionError(f"warm mesh run {run}: the streams differ "
+                                 f"from one device's, or do not come back")
+        if driver.LAUNCHES != {"encoder": 2, "decoder": 2}:
+            raise AssertionError(f"warm mesh run {run}: launches "
+                                 f"{driver.LAUNCHES}, want 2 each way")
+        for k in warm_mesh_launches:
+            warm_mesh_launches[k] += driver.LAUNCHES[k]
+    print(f"warm mesh over {[str(d) for d in two.devices]}: two runs of "
+          f"32 x 16 KiB, 2 lane groups each way, the one-device streams "
+          f"and the blocks back", flush=True)
+    phase("warm kernels vs plain", t0)
+
+    # ------------------------------------------------------- 7. raw path
     t0 = time.perf_counter()
 
     def raw_caps(stream):
@@ -534,7 +749,7 @@ def main() -> int:
               flush=True)
     phase("raw path", t0)
 
-    # ---------------------------------------------------------- 7. main path
+    # ---------------------------------------------------------- 8. main path
     t0 = time.perf_counter()
     launches = {"encoder": 0, "decoder": 0}
     results = {}
@@ -580,7 +795,8 @@ def main() -> int:
                 raise AssertionError(f"{label}: decode counts "
                                      f"{dec_stats.events} != encode counts "
                                      f"{enc_stats.events}")
-            payloads, orig_lens, _, seed_bytes = blk.unpack_container(blob)
+            payloads, orig_lens, _, seed_bytes, _ = blk.unpack_container(
+                blob)
             if (len(payloads) != lanes or bool(seed_bytes) != seeded
                     or blob != blk.pack_container(payloads, orig_lens, BLOCK,
                                                   seeds=seed_bytes)):
@@ -620,7 +836,7 @@ def main() -> int:
                   f"{hashes.pop()}), three decodes identical", flush=True)
     phase("main path checks", t0)
 
-    # ---------------------------------------------------- 8. command line
+    # ---------------------------------------------------- 9. command line
     t0 = time.perf_counter()
     cli_dir = ROOT / "build" / "chip_smoke_cli"
     shutil.rmtree(cli_dir, ignore_errors=True)
@@ -654,7 +870,7 @@ def main() -> int:
     shutil.rmtree(cli_dir)
     phase("command line", t0)
 
-    # ---------------------------------------------------------------- 9. times
+    # --------------------------------------------------------------- 10. times
     t0 = time.perf_counter()
     print(smi.stdout.strip(), flush=True)   # the card beside every time
     lane_mib = driver.scratch_words(caps) * 4 / 2**20
@@ -697,7 +913,7 @@ def main() -> int:
             lambda: driver.decode_blocks_cuda(words, byte_lens, caps))
         row["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
         # the same wave seeded: K1 on the same text, K2 on its streams
-        _, _, _, seed_bytes = blk.unpack_container(seeded_blob)
+        seed_bytes = blk.unpack_container(seeded_blob)[3]
         wseeds = runtime.seeds_to_arrays(seed_bytes)
         row["K1_seeded"], row["K1_seeded_runs"] = kernel_ms(
             lambda: driver.encode_blocks_cuda(text, tlen, params, caps,
@@ -760,7 +976,7 @@ def main() -> int:
             raise AssertionError(f"plain shape: block {i} does not round trip")
     phase("times", t0)
 
-    # ------------------------------------------------- 10-15. MB blocks
+    # ------------------------------------------------- 11-16. MB blocks
     # the MB corpus's streams against the reference codec's, recorded by
     # tools/mb_oracle.py (the JAX package does not run here)
     oracle = mbc.load_oracle()
@@ -838,14 +1054,14 @@ def main() -> int:
               flush=True)
         return row, got
 
-    # ---- 10. MB wave: 32 x 1 MiB at -t 15 -w 8, caps_for_block(1 MiB)
+    # ---- 11. MB wave: 32 x 1 MiB at -t 15 -w 8, caps_for_block(1 MiB)
     t0 = time.perf_counter()
     mb_caps = runtime.caps_for_block(1 << 20)
     mb_data = mbc.mb_corpus(32 << 20)
     mb_blocks = mbc.mb_blocks("wave_1m")
     blob, enc_s, n = counted(lambda: x3tpu_torch.compress(
         mb_data, block_bytes=1 << 20, device="cuda"))
-    mb_payloads, orig_lens, _, _ = blk.unpack_container(blob)
+    mb_payloads, orig_lens = blk.unpack_container(blob)[:2]
     if n != {"encoder": 1, "decoder": 0} or len(mb_payloads) != 32:
         raise AssertionError(f"MB wave: {len(mb_payloads)} streams in "
                              f"launches {n}")
@@ -878,7 +1094,7 @@ def main() -> int:
             "wall_s_mb": enc_s if kernel == "encoder" else dec_s})
     phase("MB wave", t0)
 
-    # ---- 11. the first 8 blocks under caps_for_block(16 MiB): caps never
+    # ---- 12. the first 8 blocks under caps_for_block(16 MiB): caps never
     # change a stream
     t0 = time.perf_counter()
     caps16 = runtime.caps_for_block(16 << 20)
@@ -895,7 +1111,7 @@ def main() -> int:
     mb["decoder"]["ms_mb_16m_caps"] = row["k2_ms"]
     phase("MB 16 MiB caps", t0)
 
-    # ---- 12. 32 x 256 KiB at -w 32 (dict 6144, 640 items a row)
+    # ---- 13. 32 x 256 KiB at -w 32 (dict 6144, 640 items a row)
     t0 = time.perf_counter()
     w32 = X3Params(window=32 * 1024)
     w32_data = mbc.mb_corpus(8 << 20)
@@ -939,7 +1155,7 @@ def main() -> int:
     mb["encoder"]["ms_w32_overflowing_attempts"] = [ms for ms, _ in attempts]
     phase("window 32 KiB", t0)
 
-    # ---- 13. the MB wave in launches of 8 lanes (a budget of 8 lanes)
+    # ---- 14. the MB wave in launches of 8 lanes (a budget of 8 lanes)
     t0 = time.perf_counter()
     budget = 8 * driver.encoder_lane_bytes(params, mb_caps)
     res, enc_s, n = counted(lambda: runtime.encode_wave(
@@ -967,7 +1183,7 @@ def main() -> int:
                           "launches_mb_split": n2["decoder"]})
     phase("wave split", t0)
 
-    # ---- 14. the MB wave from dict_cap 8192, which some blocks outgrow:
+    # ---- 15. the MB wave from dict_cap 8192, which some blocks outgrow:
     # the retry at caps.scaled(2) (dict 16384, 1 M pairs, 16384 items)
     # gives the reference streams
     t0 = time.perf_counter()
@@ -988,7 +1204,7 @@ def main() -> int:
                           "scratch_mib_mb_retry": retry_mib})
     phase("MB retry", t0)
 
-    # ---- 15. the command line at real file sizes: one 4 MiB file (a raw
+    # ---- 16. the command line at real file sizes: one 4 MiB file (a raw
     # stream) and 32 MiB in 1 MiB blocks (a container)
     t0 = time.perf_counter()
     cli_dir = ROOT / "build" / "chip_smoke_cli_mb"
@@ -1067,7 +1283,7 @@ def main() -> int:
         ms for ms, _ in k2_attempts]
     phase("MB command line", t0)
 
-    # ---- 16. mesh: lane groups over the local cards, and two entries on
+    # ---- 17. mesh: lane groups over the local cards, and two entries on
     # one card (two streams side by side)
     t0 = time.perf_counter()
     from x3tpu_torch.parallel import mesh as meshmod
@@ -1116,7 +1332,7 @@ def main() -> int:
     print(f"mesh MB wave over {[str(d) for d in two.devices]}: 2 groups x "
           f"2 launches of 8 lanes each way, the reference streams and the "
           f"blocks back; encode_wave {enc_s:.3f} s, decode_wave "
-          f"{dec_s:.3f} s; phase 13's 4 launches in series "
+          f"{dec_s:.3f} s; phase 14's 4 launches in series "
           f"{serial[0]:.3f} s, {serial[1]:.3f} s ({enc_s / serial[0]:.3f}x, "
           f"{dec_s / serial[1]:.3f}x)", flush=True)
     for kernel, wall, launched in (("encoder", enc_s, n["encoder"]),
@@ -1126,7 +1342,7 @@ def main() -> int:
                            "launches_mb_mesh2": launched})
     phase("mesh", t0)
 
-    # ---- 17. distributed: two processes, gloo over localhost
+    # ---- 18. distributed: two processes, gloo over localhost
     t0 = time.perf_counter()
     dist_dir = ROOT / "build" / "chip_smoke_dist"
     shutil.rmtree(dist_dir, ignore_errors=True)
@@ -1203,6 +1419,10 @@ def main() -> int:
             "bound_ms_128_lanes": bounds[128][kernel],
             "launches_mb": mb_launches[kernel],
             **mb[kernel],
+            "launches_warm": warm_launches[kernel],
+            "ms_warm": warm_rows[32][k_ms],
+            "ms_warm_128_lanes": warm_rows[128][k_ms],
+            "launches_warm_mesh": warm_mesh_launches[kernel],
         }
 
     k1_entry = kernel_entry("encoder", "x3tpu_torch/csrc/x3_encoder.cu",
@@ -1245,6 +1465,16 @@ def main() -> int:
         "trainer_s": {str(k): v["trainer"] for k, v in timing.items()},
         "ratio": {f"{k}{' seeded' if sd else ''}": r
                   for (k, sd), r in ratios.items()},
+        "warm_compress_mb_s": {str(k): len(data[k]) / 1e6 / v["compress"]
+                               for k, v in warm_rows.items()},
+        "warm_decompress_mb_s": {str(k): len(data[k]) / 1e6
+                                 / v["decompress"]
+                                 for k, v in warm_rows.items()},
+        "warm_trainer_s": {str(k): v["trainer"] for k, v in warm_rows.items()},
+        "ratio_warm": {str(k): {"warm": v["ratio"],
+                                "seeded": v["ratio_seeded"],
+                                "unseeded": v["ratio_unseeded"]}
+                       for k, v in warm_rows.items()},
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -41,7 +41,7 @@ def test_container_bytes_match():
     ours = blk.pack_container(PAYLOADS, lens, 4096)
     theirs = jblk.pack_container(PAYLOADS, lens, 4096)
     assert ours == theirs
-    assert blk.unpack_container(theirs) == (PAYLOADS, lens, 4096, [])
+    assert blk.unpack_container(theirs) == (PAYLOADS, lens, 4096, [], [])
     assert jblk.unpack_container(ours) == (PAYLOADS, lens, 4096, [], [])
     assert blk.is_container(ours) and not blk.is_container(PAYLOADS[1])
     data = bytes(range(200))
@@ -55,9 +55,9 @@ SEEDS = [b"ab", bytes(range(32)), b"\x00", b"the "]
 @pytest.mark.parametrize("case", ["malformed", "seeded", "warm"])
 def test_container_errors(case):
     """A cut or padded container raises ValueError in both packages; a
-    seeded one (x3tpu's dictionary seeds) parses to x3tpu's seeds, and the
-    port writes it byte for byte; one with a warm-start tape still raises
-    NotImplementedError (the port has no warm start)."""
+    seeded one (x3tpu's dictionary seeds) parses to x3tpu's seeds, and one
+    with a warm-start tape to x3tpu's seeds and tape; the port writes each
+    byte for byte, and a cut tape raises ValueError."""
     lens = [1, 2, 3, 4]
     if case == "malformed":
         good = jblk.pack_container(PAYLOADS, lens, 4096)
@@ -68,7 +68,8 @@ def test_container_errors(case):
                 blk.unpack_container(bad)
     elif case == "seeded":
         theirs = jblk.pack_container(PAYLOADS, lens, 4096, seeds=SEEDS)
-        assert blk.unpack_container(theirs) == (PAYLOADS, lens, 4096, SEEDS)
+        assert blk.unpack_container(theirs) == (PAYLOADS, lens, 4096, SEEDS,
+                                                [])
         ours = blk.pack_container(PAYLOADS, lens, 4096, seeds=SEEDS)
         assert ours == theirs
         assert jblk.unpack_container(ours)[3] == SEEDS
@@ -78,8 +79,13 @@ def test_container_errors(case):
     else:
         warm = jblk.pack_container(PAYLOADS, lens, 4096, seeds=[b"ab"],
                                    warm_tape=[0, 0])
-        with pytest.raises(NotImplementedError, match="warm"):
-            blk.unpack_container(warm)
+        assert blk.unpack_container(warm) == (PAYLOADS, lens, 4096, [b"ab"],
+                                              [0, 0])
+        assert blk.pack_container(PAYLOADS, lens, 4096, seeds=[b"ab"],
+                                  warm_tape=[0, 0]) == warm
+        head = len(jblk.pack_container([], [], 4096, seeds=[b"ab"]))
+        with pytest.raises(ValueError):
+            blk.unpack_container(warm[: head + 5])
 
 
 def test_stats_match():

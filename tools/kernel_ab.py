@@ -23,6 +23,15 @@ global, plan), on 32 blocks of ``x3tpu_torch.utils.corpus.mb_corpus`` at
 each of PLAN_CASES' capacities (16 KiB to 1 MiB blocks, -w 8 and -w 32):
 one CUDA-event time a launch and a hash of the streams, which must agree
 (CASE: labels of PLAN_CASES to run; default all).
+
+    python3 tools/kernel_ab.py --sass TREE [...]
+
+Each tree's kernel libraries as built (run the timing first, or any
+command that builds them): for every kernel function in them, its SASS
+instruction count and a hash of its instructions without their addresses
+and with the kernel parameters' constant-bank offsets blanked (a new
+parameter moves the others), ``cuobjdump -sass``, one JSON line a tree,
+so the machine code of two trees' functions can be compared.
 """
 
 import hashlib
@@ -163,7 +172,35 @@ def time_tree(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
     return out
 
 
+def sass_of(tree: pathlib.Path) -> dict:
+    """Kernel function -> [SASS instructions, hash of their text] of each
+    library under ``tree``'s build directory (``cuobjdump -sass``)."""
+    import re
+
+    cuobjdump = pathlib.Path("/usr/local/cuda/bin/cuobjdump")
+    out = {}
+    libs = (tree / "build" / "x3tpu_torch").glob("libx3*coder_*.so")
+    for lib in sorted(libs):
+        text = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for part in text.split("Function : ")[1:]:
+            name = part.split("\n", 1)[0].strip()
+            ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", part)
+            code = re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][]",
+                          "\n".join(ins))
+            out[f"{lib.name.split('_')[0]}:{name}"] = [
+                len(ins), hashlib.sha256(code.encode()).hexdigest()[:16]]
+    return out
+
+
 def main() -> int:
+    if sys.argv[1] == "--sass":
+        for tree in sys.argv[2:]:
+            print(json.dumps({"tree": tree,
+                              "sass": sass_of(pathlib.Path(tree))}),
+                  flush=True)
+        return 0
     if sys.argv[1] == "--plan":
         plan_ab(sys.argv[2:])
         return 0

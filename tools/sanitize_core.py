@@ -13,8 +13,11 @@ and in a buffer of their own; each stream must be the golden one) and the
 golden streams (each must decode to its input); small capacities where
 every overflow flag fires, encoded and decoded; corrupt streams (random
 bytes, a golden stream cut in half, zeros, and every stream of 0-4 bytes),
-which must end in a flag; and seeded encodes and decodes (seeds trained by
-``x3tpu_torch.host`` on the golden inputs), which must round trip.  Any
+which must end in a flag; seeded encodes and decodes (seeds trained by
+``x3tpu_torch.host`` on the golden inputs), which must round trip; and
+warm ones (the seeds and tape ``x3tpu_torch.host.train_tape`` gives there,
+each lane's scratch written by ``driver.seed_scratch`` and
+``driver.warm_scratch``), which must round trip too.  Any
 sanitizer report ends the child with an error, and so does a failed check.
 The build takes about a minute; the tests (``tests/test_torch_kernel_host
 .py``) build the cores with ``-O2`` only.
@@ -83,6 +86,36 @@ class Core:
         lib.x3h_encode.restype = i
         lib.x3h_decode.argtypes = [p, p] + [i] * 9 + [p, p, i] + [p] * 5
         lib.x3h_decode.restype = i
+        lib.x3h_encode_warm.argtypes = ([p, p, i, ctypes.c_longlong]
+                                        + [i] * 12
+                                        + [ctypes.c_uint, i, p, i, i, i]
+                                        + [p] * 5)
+        lib.x3h_encode_warm.restype = i
+        lib.x3h_decode_warm.argtypes = ([p, p] + [i] * 10 + [p, i, i, i]
+                                        + [p] * 5)
+        lib.x3h_decode_warm.restype = i
+        for fn in ("x3h_dict_layout", "x3h_fam_layout"):
+            getattr(lib, fn).restype = None
+        lib.x3h_dict_layout.argtypes = [i] * 6 + [p]
+        lib.x3h_fam_layout.argtypes = [i] * 7 + [p]
+        lib.x3h_scratch_words.argtypes = [i] * 6
+        lib.x3h_scratch_words.restype = ctypes.c_longlong
+
+    def warm_scratch(self, caps, seeds, warm, cumulative):
+        """One lane's scratch as the wrappers start a warm lane, and the
+        warm counts."""
+        import torch
+        from x3tpu_torch.vm import driver
+
+        words = self.lib.x3h_scratch_words(
+            caps.dict_cap, caps.pair_cap, caps.ctx_items_cap,
+            caps.ctx0_items_cap, caps.ctx_small_cap, caps.ctx_promo_rows)
+        scratch = torch.zeros((1, words), dtype=torch.int32)
+        driver.seed_scratch(scratch, driver.dict_layout(
+            caps, self.lib, "x3h_dict_layout"), seeds, cumulative)
+        counts = driver.warm_scratch(scratch, driver.fam_layout(
+            caps, self.lib, "x3h_fam_layout"), warm, caps)
+        return scratch[0].numpy().copy(), counts
 
     @staticmethod
     def _seeds(seeds):
@@ -94,8 +127,9 @@ class Core:
         lens = np.ascontiguousarray(seeds[1], np.int32)
         return strs.ctypes.data, lens.ctypes.data, len(lens), (strs, lens)
 
-    def encode(self, blocks, params, caps, mask=0, seeds=None):
-        """(streams, flags) of the encoder core."""
+    def encode(self, blocks, params, caps, mask=0, seeds=None, warm=None):
+        """(streams, flags) of the encoder core (every lane from ``seeds``
+        and the warm state ``warm`` where given)."""
         import numpy as np
         from x3tpu_torch import codec
 
@@ -107,20 +141,26 @@ class Core:
         sizes = np.zeros((lanes, 5), np.float32)
         flags = np.zeros(lanes, np.int32)
         sp, lp, k, _keep = self._seeds(seeds)
-        self.lib.x3h_encode(
-            text.ctypes.data, tlen.ctypes.data, lanes, text.shape[1],
-            params.max_match_count, params.window, params.magic_factor1,
-            params.magic_factor2, int(params.nl_remap), caps.dict_cap,
-            caps.pair_cap, caps.ctx_items_cap, caps.ctx0_items_cap,
-            caps.ctx_small_cap, caps.ctx_promo_rows, caps.out_words, mask,
-            sp, lp, k, words.ctypes.data, lens.ctypes.data,
-            counts.ctypes.data, sizes.ctypes.data, flags.ctypes.data, None)
+        head = (text.ctypes.data, tlen.ctypes.data, lanes, text.shape[1],
+                params.max_match_count, params.window, params.magic_factor1,
+                params.magic_factor2, int(params.nl_remap), caps.dict_cap,
+                caps.pair_cap, caps.ctx_items_cap, caps.ctx0_items_cap,
+                caps.ctx_small_cap, caps.ctx_promo_rows, caps.out_words,
+                mask)
+        tail = (words.ctypes.data, lens.ctypes.data, counts.ctypes.data,
+                sizes.ctypes.data, flags.ctypes.data)
+        if warm is None:
+            self.lib.x3h_encode(*head, sp, lp, k, *tail, None)
+        else:
+            init, wn = self.warm_scratch(caps, seeds, warm, False)
+            self.lib.x3h_encode_warm(*head, k, init.ctypes.data, *wn, *tail)
         streams = [words[i].tobytes()[: min(lens[i], 4 * caps.out_words)]
                    for i in range(lanes)]
         return streams, flags
 
-    def decode(self, streams, caps, seeds=None):
-        """(outputs, flags) of the decoder core."""
+    def decode(self, streams, caps, seeds=None, warm=None):
+        """(outputs, flags) of the decoder core (``seeds`` and ``warm`` as
+        :meth:`encode` takes them)."""
         import numpy as np
 
         iw = max(1, max((len(s) + 3) // 4 for s in streams))
@@ -136,13 +176,17 @@ class Core:
         sizes = np.zeros((lanes, 5), np.float32)
         flags = np.zeros(lanes, np.int32)
         sp, lp, k, _keep = self._seeds(seeds)
-        self.lib.x3h_decode(
-            words.ctypes.data, byte_lens.ctypes.data, lanes, iw,
-            caps.block_bytes, caps.dict_cap, caps.pair_cap,
-            caps.ctx_items_cap, caps.ctx0_items_cap, caps.ctx_small_cap,
-            caps.ctx_promo_rows, sp, lp, k, out.ctypes.data,
-            lens.ctypes.data, counts.ctypes.data, sizes.ctypes.data,
-            flags.ctypes.data)
+        head = (words.ctypes.data, byte_lens.ctypes.data, lanes, iw,
+                caps.block_bytes, caps.dict_cap, caps.pair_cap,
+                caps.ctx_items_cap, caps.ctx0_items_cap, caps.ctx_small_cap,
+                caps.ctx_promo_rows)
+        tail = (out.ctypes.data, lens.ctypes.data, counts.ctypes.data,
+                sizes.ctypes.data, flags.ctypes.data)
+        if warm is None:
+            self.lib.x3h_decode(*head, sp, lp, k, *tail)
+        else:
+            init, wn = self.warm_scratch(caps, seeds, warm, True)
+            self.lib.x3h_decode_warm(*head, k, init.ctypes.data, *wn, *tail)
         return [out[i, : lens[i]].tobytes() for i in range(lanes)], flags
 
 
@@ -155,7 +199,7 @@ def check(ok, what):
 def child(lib_path) -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
-    from x3tpu_torch import host
+    from x3tpu_torch import host, warm
     from x3tpu_torch.config import CodecCaps, X3Params
     from x3tpu_torch.parallel import runtime
     from x3tpu_torch.vm import driver
@@ -230,6 +274,24 @@ def child(lib_path) -> int:
         outs, dflags = core.decode(streams, small)
         check(outs != data or bool(dflags.any()),
               f"seeded {pname}: the streams need their seeds")
+
+    # warm: the same inputs from the seeds and tape trained on all of them
+    for pname, kw in PARAMSETS.items():
+        params = X3Params(**kw)
+        strs, lens, tape = host.train_tape(b"".join(inputs.values()),
+                                           params, small.dict_cap // 2)
+        seed_bytes = [strs[i, : lens[i]].tobytes() for i in range(len(lens))]
+        seeds = runtime.seeds_to_arrays(seed_bytes)
+        tape, _ = warm.decode_tape(warm.encode_tape(tape))
+        state = warm.pack(warm.replay(tape, len(seed_bytes)))
+        data = [inputs[n] for n in names]
+        for mask in (0, driver.smem_plan(params, small).mask):
+            streams, flags = core.encode(data, params, small, mask, seeds,
+                                         state)
+            outs, dflags = core.decode(streams, small, seeds, state)
+            check(outs == data and not flags.any() and not dflags.any(),
+                  f"warm {pname} ({state.pair_n} pairs), plan mask "
+                  f"{mask:#x}: {len(data)} blocks round trip")
     print("sanitize_core: no sanitizer report, every check passed",
           flush=True)
     return 0

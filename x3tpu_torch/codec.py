@@ -30,6 +30,7 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from x3tpu_torch import warm as wm
 from x3tpu_torch.config import (
     CodecCaps,
     E_CTX0,
@@ -87,10 +88,13 @@ class EncCarry(NamedTuple):
     pair_of: torch.Tensor  # bool [L]
 
 
-def check_seeds(seeds, caps: CodecCaps) -> int:
+def check_seeds(seeds, caps: CodecCaps, warm=None) -> int:
     """The number of seeds K of ``seeds`` ((strs u8 [K, 32], lens i32 [K])
-    or None: 0); more seeds than ``caps.dict_cap`` raise ValueError."""
+    or None: 0); more seeds than ``caps.dict_cap``, and a warm state
+    ``warm`` without seeds (its tape indexes them), raise ValueError."""
     if seeds is None:
+        if warm is not None:
+            raise ValueError("warm start requires dictionary seeds")
         return 0
     k = int(seeds[0].shape[0])
     if k > caps.dict_cap:
@@ -99,13 +103,46 @@ def check_seeds(seeds, caps: CodecCaps) -> int:
     return k
 
 
-def _init_shared(lanes: int, caps: CodecCaps, device, seeds=None):
+def warm_tables(warm, caps: CodecCaps):
+    """The warm state ``warm`` (``x3tpu_torch.warm.WarmArrays``) as the
+    tables of one lane (``x3tpu_torch.warm.dense``), rows as wide as both
+    families' small pools.  Raises ValueError where ``caps`` cannot hold
+    it (``warm.check_fits``; the hubs are ``dict_cap`` wide)."""
+    width = min(caps.ctx_small_cap, caps.ctx_items_cap, caps.ctx0_items_cap)
+    wm.check_fits(warm, caps.dict_cap, caps.pair_cap, width, caps.dict_cap)
+    return wm.dense(warm, width)
+
+
+def _warm_family(fam: cm.CtxFamily, hub: dict, pool: dict) -> cm.CtxFamily:
+    """``fam`` (zeroed) with the warm ``hub`` row and small-pool rows
+    ``pool`` (:func:`warm_tables`) written into every lane."""
+    dev = fam.hub_tags.device
+    t = lambda a: torch.as_tensor(np.asarray(a), device=dev).to(I64)
+    h, rows, w = hub["n"], t(pool["rows"]), pool["t"].shape[1]
+    fam.hub_tags[:, :h] = t(hub["t"])
+    fam.hub_freqs[:, :h] = t(hub["f"])
+    if fam.hub_pair is not None:
+        fam.hub_pair[:, :h] = t(hub["p"])
+    fam.tags[:, rows, :w] = t(pool["t"])
+    fam.freqs[:, rows, :w] = t(pool["f"])
+    if fam.pair is not None:
+        fam.pair[:, rows, :w] = t(pool["p"])
+    fam.n[:, rows] = t(pool["n"])
+    return fam._replace(hub_n=torch.full_like(fam.hub_n, h))
+
+
+def _init_shared(lanes: int, caps: CodecCaps, device, seeds=None, warm=None):
     """Every lane's starting state.  ``seeds`` (strs u8 [K, 32], lens i32
     [K]; x3tpu/codec.py:89-125): every lane starts with the same K
     fragments in its dictionary, tags 0..K-1 at recency ranks 0..K-1, and
-    one index-model symbol of freq 1 each.  Encoder and decoder must take
-    the same seeds (the container carries them)."""
-    k = check_seeds(seeds, caps)
+    one index-model symbol of freq 1 each.  ``warm``
+    (``x3tpu_torch.warm.WarmArrays`` replayed from the tape over those
+    seeds; x3tpu/codec.py:125-153): both context families start with its
+    hub rows, small-pool rows and hub counts (the pair count is the
+    carries').  Encoder and decoder must take the same seeds and warm
+    state (the container carries both)."""
+    k = check_seeds(seeds, caps, warm)
+    tables = None if warm is None else warm_tables(warm, caps)
     d = dm.dict_init(lanes, caps.dict_cap, device)
     if k:
         ii = torch.arange(caps.dict_cap, device=device)
@@ -130,6 +167,9 @@ def _init_shared(lanes: int, caps: CodecCaps, device, seeds=None):
     ch = torch.ones((lanes, 256), dtype=I64, device=device)
     ix = torch.zeros((lanes, caps.dict_cap), dtype=I64, device=device)
     ix[:, :k] = 1
+    if tables is not None:
+        ctx0 = _warm_family(ctx0, tables["h0"], tables["c0"])
+        ctx1 = _warm_family(ctx1, tables["h1"], tables["c1"])
     return d, ctx0, ctx1, ev, ms, ch, ix
 
 
@@ -343,18 +383,25 @@ def _enc_body(carry: EncCarry, params: X3Params) -> EncCarry:
     )
 
 
+def _pair_n0(lanes: int, dev, warm) -> torch.Tensor:
+    """Every lane's starting pair count: the warm state's, else 0."""
+    return torch.full((lanes,), 0 if warm is None else int(warm.pair_n),
+                      dtype=I64, device=dev)
+
+
 def enc_init_carry(text: torch.Tensor, tlen: torch.Tensor, params: X3Params,
-                   caps: CodecCaps, seeds=None) -> EncCarry:
+                   caps: CodecCaps, seeds=None, warm=None) -> EncCarry:
     """Initial encoder carry for L blocks.  ``text`` u8 [L, TB] must be
-    zero-padded past each block (:func:`pack_blocks`); ``seeds`` as
-    :func:`_init_shared` takes them."""
+    zero-padded past each block (:func:`pack_blocks`); ``seeds`` and
+    ``warm`` as :func:`_init_shared` takes them."""
     lanes = text.shape[0]
     dev = text.device
-    d, ctx0, ctx1, ev, ms, ch, ix = _init_shared(lanes, caps, dev, seeds)
+    d, ctx0, ctx1, ev, ms, ch, ix = _init_shared(lanes, caps, dev, seeds,
+                                                 warm)
     z = lambda: torch.zeros((lanes,), dtype=I64, device=dev)
     return EncCarry(
         text=text, tlen=tlen.to(I64), p=z(), prev_c1=z(), c1=z(),
-        d=d, ctx0=ctx0, ctx1=ctx1, pair_n=z(),
+        d=d, ctx0=ctx0, ctx1=ctx1, pair_n=_pair_n0(lanes, dev, warm),
         ev=ev, ms=ms, ch=ch, ix=ix,
         enc=acm.enc_init(lanes, dev),
         sink=bitio.sink_init(lanes, caps.out_words, dev),
@@ -397,15 +444,16 @@ def enc_finalize(carry: EncCarry):
 
 @torch.inference_mode()
 def encode_blocks_chunked(text, tlen, params: X3Params, caps: CodecCaps,
-                          seeds=None):
+                          seeds=None, warm=None):
     """Encode L blocks: ``text`` u8 [L, TB] and ``tlen`` [L] (tensors or
     arrays; the work runs on ``text``'s device), every lane from the
-    dictionary ``seeds`` (strs u8 [K, 32], lens i32 [K]) where given.
+    dictionary ``seeds`` (strs u8 [K, 32], lens i32 [K]) and the warm
+    state ``warm`` (``x3tpu_torch.warm.WarmArrays``) where given.
     Returns (words u32-in-int64 [L, out_words], byte_lens, counts, sizes,
     Overflow)."""
     text = torch.as_tensor(text)
     tlen = torch.as_tensor(tlen, device=text.device)
-    carry = enc_init_carry(text, tlen, params, caps, seeds)
+    carry = enc_init_carry(text, tlen, params, caps, seeds, warm)
     while enc_active(carry):
         carry = _enc_body(carry, params)
     return enc_finalize(carry)
@@ -619,14 +667,15 @@ def _dec_body(carry: DecCarry) -> DecCarry:
 
 
 def dec_init_carry(words: torch.Tensor, byte_lens: torch.Tensor,
-                   caps: CodecCaps, seeds=None) -> DecCarry:
+                   caps: CodecCaps, seeds=None, warm=None) -> DecCarry:
     """Initial decoder carry for L streams: ``words`` [L, IW] (u32 values)
-    and ``byte_lens`` [L]; ``seeds`` as :func:`_init_shared` takes them.
-    A lane whose ``byte_lens`` is <= 0 starts done (x3tpu/vm/driver.py
-    _init_state_dec)."""
+    and ``byte_lens`` [L]; ``seeds`` and ``warm`` as :func:`_init_shared`
+    takes them.  A lane whose ``byte_lens`` is <= 0 starts done
+    (x3tpu/vm/driver.py _init_state_dec)."""
     lanes = words.shape[0]
     dev = words.device
-    d, ctx0, ctx1, ev, ms, ch, ix = _init_shared(lanes, caps, dev, seeds)
+    d, ctx0, ctx1, ev, ms, ch, ix = _init_shared(lanes, caps, dev, seeds,
+                                                 warm)
     byte_lens = byte_lens.to(I64)
     dec, src = acm.dec_init(bitio.source_init(words.to(I64), byte_lens))
     z = lambda: torch.zeros((lanes,), dtype=I64, device=dev)
@@ -635,7 +684,7 @@ def dec_init_carry(words: torch.Tensor, byte_lens: torch.Tensor,
         out=torch.zeros((lanes, caps.block_bytes), dtype=torch.uint8,
                         device=dev),
         opos=z(), done=byte_lens <= 0, prev_c1=z(), c1=z(),
-        d=d, ctx0=ctx0, ctx1=ctx1, pair_n=z(),
+        d=d, ctx0=ctx0, ctx1=ctx1, pair_n=_pair_n0(lanes, dev, warm),
         ev=ev, ms=ms, ch=ch, ix=ix, dec=dec, src=src,
         counts=torch.zeros((lanes, E_LAST), dtype=I64, device=dev),
         sizes=torch.zeros((lanes, E_LAST), dtype=F32, device=dev),
@@ -683,17 +732,19 @@ def corrupt() -> ValueError:
 
 
 @torch.inference_mode()
-def decode_blocks_chunked(words, byte_lens, caps: CodecCaps, seeds=None):
+def decode_blocks_chunked(words, byte_lens, caps: CodecCaps, seeds=None,
+                          warm=None):
     """Decode L streams: ``words`` [L, IW] (u32 values; tensors or arrays,
     the work runs on ``words``' device) and ``byte_lens`` [L], every lane
-    from the dictionary ``seeds`` (strs u8 [K, 32], lens i32 [K]) where
-    given.  The stream is self-describing: no parameter shapes decoding.
-    Returns (out u8 [L, block_bytes], out_lens, counts, sizes, Overflow);
-    raises ValueError for a corrupt stream (a symbol past its model's
-    total) and when a lane runs past the event bound."""
+    from the encoder's dictionary ``seeds`` (strs u8 [K, 32], lens i32
+    [K]) and warm state ``warm`` where given.  The stream is
+    self-describing: no parameter shapes decoding.  Returns (out u8 [L,
+    block_bytes], out_lens, counts, sizes, Overflow); raises ValueError
+    for a corrupt stream (a symbol past its model's total) and when a lane
+    runs past the event bound."""
     words = torch.as_tensor(words)
     byte_lens = torch.as_tensor(byte_lens, device=words.device)
-    carry = dec_init_carry(words, byte_lens, caps, seeds)
+    carry = dec_init_carry(words, byte_lens, caps, seeds, warm)
     carry = dec_chunk(carry, caps.block_bytes + 1)
     result = dec_finalize(carry)
     # a lane whose state overflowed decodes past its capacities, where its

@@ -197,6 +197,40 @@ inline void seed_dict(const Layout& L, int32_t* scr, const uint8_t* strs,
   }
 }
 
+// A family's planes as scratch offsets, in x3tpu_torch/vm/driver.py
+// FAM_PLANES' order: out [12] (the layout query of warm_scratch).
+X3_HD void fam_offsets(const Fam& F, long long* out) {
+  const int64_t at[12] = {F.hub_tags, F.hub_freqs, F.hub_pair, F.tags,
+                          F.freqs, F.pair, F.n, F.promo, F.big_tags,
+                          F.big_freqs, F.big_pair, F.big_n};
+  for (int k = 0; k < 12; ++k) out[k] = at[k];
+}
+
+// Scratch offset, in int32 words, of plane k (not PL_TEXT) of the plan.
+X3_HD int64_t plane_offset(const Layout& L, int k) {
+  switch (k) {
+    case PL_STRS: return L.strs;
+    case PL_LENS: return L.lens;
+    case PL_RANK_OF: return L.rank_of;
+    case PL_IX: return L.ix;
+    case PL_F1_HUB_TAGS: return L.f1.hub_tags;
+    case PL_F1_HUB_FREQS: return L.f1.hub_freqs;
+    case PL_F1_HUB_PAIR: return L.f1.hub_pair;
+    case PL_F0_HUB_TAGS: return L.f0.hub_tags;
+    case PL_F0_HUB_FREQS: return L.f0.hub_freqs;
+    case PL_F1_N: return L.f1.n;
+    default: return L.f1.promo;  // PL_F1_PROMO
+  }
+}
+
+// The counts a warm start begins from (x3tpu_torch/warm.py; x3tpu's
+// R_PAIR_N, R_HUB0_N, R_HUB1_N): the registered pairs and both hubs'
+// items, the same for every lane; all 0 without warm start.
+struct WarmN {
+  int pair_n, hub_n[2];
+  X3_HD bool any() const { return (pair_n | hub_n[0] | hub_n[1]) != 0; }
+};
+
 // One context family's tables, resolved to pointers (scratch or shared).
 struct FamP {
   int H, S, CS, M, CB, with_pair;
@@ -1221,8 +1255,10 @@ struct LaneIO {
   int64_t tb;
   int tlen;
   int seeds;            // K: the dictionary seeds the scratch holds
+  WarmN warm;           // the warm start's counts (all 0: none; read by
+                        // encode_lane<true> only)
   int32_t* scr;         // the lane's scratch (Layout::words), zeroed but
-                        // for the seeds
+                        // for the seeds and the warm tables
   uint8_t* smem;        // the planes the layout puts in shared memory
   uint32_t* words;      // the lane's zeroed output row (out_words)
   int32_t* byte_len;
@@ -1281,8 +1317,10 @@ enum {
 #endif
 
 // Copy the text row into shared memory and zero the other planes there;
-// with seeds, the dictionary planes there are copied from the scratch.
-template <class P>
+// with seeds, the dictionary planes there are copied from the scratch,
+// and with a warm start (kWarm: it needs seeds) every plane, the warm
+// tables included.
+template <bool kWarm, class P>
 X3_HD void init_smem(const P& par, const Layout& L, const LaneIO& io) {
   (void)par;  // the host copies with memcpy
   if (!L.smem_bytes) return;
@@ -1308,7 +1346,8 @@ X3_HD void init_smem(const P& par, const Layout& L, const LaneIO& io) {
     // (a lane's scratch is only 4-byte aligned)
     for (int k = PL_TEXT + 1; k < PL_COUNT; ++k) {
       if (L.sm[k] < 0) continue;
-      const int64_t off = k == PL_STRS ? L.strs : k == PL_LENS ? L.lens
+      const int64_t off = kWarm ? plane_offset(L, k)
+                          : k == PL_STRS ? L.strs : k == PL_LENS ? L.lens
                           : k == PL_RANK_OF ? L.rank_of
                           : k == PL_IX ? L.ix : -1;
       int32_t* dst = (int32_t*)(io.smem + L.sm[k]);
@@ -1327,7 +1366,11 @@ X3_HD void init_smem(const P& par, const Layout& L, const LaneIO& io) {
 #endif
 }
 
-template <class P>
+// One lane, start to finish.  kWarm: the lane starts from a warm start's
+// tables and io.warm's counts; an unwarmed launch runs the instantiation
+// without them, the code K1 ran before warm start (as decode_lane's, read
+// from arguments they measured slower there, x3_dec_core.cuh).
+template <bool kWarm = false, class P>
 X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
                        const Layout& L, const LaneIO& io, Lane& R, Shared& sh) {
   const Planes pl = resolve(L, io.scr, io.smem, io.text);
@@ -1360,13 +1403,19 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
   };
 #endif
   int pend = -1;  // the leader's: the last hit's tag, its contexts pending
-  init_smem(par, L, io);
+  init_smem<kWarm>(par, L, io);
   if (par.leader()) {
     R.flags = 0;
     R.p = R.prev_c1 = R.c1 = R.pair_n = 0;
     R.dn = io.seeds;  // a seeded dictionary starts with its K entries
     R.tlen = io.tlen;
     R.hub_n[0] = R.hub_n[1] = R.promo_n[0] = R.promo_n[1] = 0;
+    if (kWarm) {
+      // the warm pairs and hub items are in the scratch already
+      R.pair_n = io.warm.pair_n;
+      R.hub_n[0] = io.warm.hub_n[0];
+      R.hub_n[1] = io.warm.hub_n[1];
+    }
     for (int e = 0; e < E_LAST; ++e) {
       R.ev[e] = event_init_freq(e);
       R.counts[e] = 0;

@@ -150,6 +150,111 @@ long long x3h_scratch_words(int D, int pair_cap, int items1, int items0,
       .words;
 }
 
+// Offsets of context family fam's planes, as x3_fam_layout in
+// x3_encoder.cu: out [12] (x3_core.cuh fam_offsets' order).
+void x3h_fam_layout(int D, int pair_cap, int items1, int items0,
+                    int small_cap, int promo_rows, int fam, long long* out) {
+  const x3::Layout lay = x3::make_layout(
+      x3::Caps{D, pair_cap, items1, items0, small_cap, promo_rows, 0});
+  x3::fam_offsets(fam ? lay.f1 : lay.f0, out);
+}
+
+}  // extern "C"
+
+namespace {
+
+// Each lane's starting scratch: a copy of init (one lane's scratch image,
+// seeds and warm tables written in) where it is not null, else zeros with
+// the K seeds written in by seed_dict.
+void start_scratch(const x3::Layout& lay, std::vector<int32_t>& scratch,
+                   const int32_t* init, const uint8_t* seed_strs,
+                   const int32_t* seed_lens, int K, bool cumulative) {
+  if (init) {
+    scratch.assign(init, init + lay.words);
+    return;
+  }
+  scratch.assign(lay.words, 0);
+  x3::seed_dict(lay, scratch.data(), seed_strs, seed_lens, K, cumulative);
+}
+
+int encode_lanes(const uint8_t* text, const int32_t* tlen, int lanes,
+                 long long tb, const x3::Params& prm, const x3::Caps& caps,
+                 unsigned smem_mask, const uint8_t* seed_strs,
+                 const int32_t* seed_lens, int K, const int32_t* init,
+                 x3::WarmN warm, uint32_t* words, int32_t* byte_lens,
+                 int32_t* counts, float* sizes, int32_t* flags,
+                 int32_t* scratch_out) {
+  const int out_words = caps.out_words;
+  x3::Layout lay = x3::make_layout(caps);
+  x3::place_smem(lay, tb, smem_mask);
+  std::vector<int32_t> scratch;
+  // int32 elements keep the buffer aligned as the planes need
+  std::vector<int32_t> smem(lay.smem_bytes / 4 + 1);
+  for (int lane = 0; lane < lanes; ++lane) {
+    start_scratch(lay, scratch, init, seed_strs, seed_lens, K, false);
+    x3::LaneIO io;
+    io.text = text + (long long)lane * tb;
+    io.tb = tb;
+    io.tlen = tlen[lane];
+    io.seeds = K;
+    io.warm = warm;
+    io.scr = scratch.data();
+    io.smem = (uint8_t*)smem.data();
+    io.words = words + (long long)lane * out_words;
+    io.byte_len = byte_lens + lane;
+    io.counts = counts + lane * x3::E_LAST;
+    io.sizes = sizes + lane * x3::E_LAST;
+    io.flags = flags + lane;
+    io.phases = nullptr;
+    x3::Lane R;
+    x3::Shared sh;
+    if (warm.any())
+      x3::encode_lane<true>(x3::ParHost(), prm, caps, lay, io, R, sh);
+    else
+      x3::encode_lane<false>(x3::ParHost(), prm, caps, lay, io, R, sh);
+  }
+  if (scratch_out && lanes > 0)
+    memcpy(scratch_out, scratch.data(), sizeof(int32_t) * lay.words);
+  return 0;
+}
+
+int decode_lanes(const uint32_t* words, const int32_t* byte_lens, int lanes,
+                 int iw, int block_bytes, const x3::Caps& caps,
+                 const uint8_t* seed_strs, const int32_t* seed_lens, int K,
+                 const int32_t* init, x3::WarmN warm, uint8_t* out,
+                 int32_t* out_lens, int32_t* counts, float* sizes,
+                 int32_t* flags) {
+  const x3::Layout lay = x3::make_layout(caps);
+  std::vector<int32_t> scratch;
+  for (int lane = 0; lane < lanes; ++lane) {
+    start_scratch(lay, scratch, init, seed_strs, seed_lens, K, true);
+    x3::DecIO io;
+    io.words = words + (long long)lane * iw;
+    io.nbytes = byte_lens[lane];
+    io.iw = iw;
+    io.seeds = K;
+    io.warm = warm;
+    io.scr = scratch.data();
+    io.out = out + (long long)lane * block_bytes;
+    io.block_bytes = block_bytes;
+    io.out_len = out_lens + lane;
+    io.counts = counts + lane * x3::E_LAST;
+    io.sizes = sizes + lane * x3::E_LAST;
+    io.flags = flags + lane;
+    io.phases = nullptr;
+    x3::DecShared sh;
+    if (warm.any())
+      x3::decode_lane<true>(x3::ParHost(), lay, io, sh);
+    else
+      x3::decode_lane<false>(x3::ParHost(), lay, io, sh);
+  }
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
 // Same arguments and outputs as x3_encode in x3_encoder.cu, in host memory,
 // but for the seeds: the K seeds themselves (seed_strs K x 32 bytes,
 // seed_lens K), which seed_dict writes into each lane's scratch; words
@@ -165,37 +270,30 @@ int x3h_encode(const uint8_t* text, const int32_t* tlen, int lanes,
                const uint8_t* seed_strs, const int32_t* seed_lens, int K,
                uint32_t* words, int32_t* byte_lens, int32_t* counts,
                float* sizes, int32_t* flags, int32_t* scratch_out) {
-  const x3::Caps caps{D, pair_cap, items1, items0, small_cap, promo_rows,
-                      out_words};
-  const x3::Params prm{T, W, f1, f2, nl};
-  x3::Layout lay = x3::make_layout(caps);
-  x3::place_smem(lay, tb, smem_mask);
-  std::vector<int32_t> scratch;
-  // int32 elements keep the buffer aligned as the planes need
-  std::vector<int32_t> smem(lay.smem_bytes / 4 + 1);
-  for (int lane = 0; lane < lanes; ++lane) {
-    scratch.assign(lay.words, 0);
-    x3::seed_dict(lay, scratch.data(), seed_strs, seed_lens, K, false);
-    x3::LaneIO io;
-    io.text = text + (long long)lane * tb;
-    io.tb = tb;
-    io.tlen = tlen[lane];
-    io.seeds = K;
-    io.scr = scratch.data();
-    io.smem = (uint8_t*)smem.data();
-    io.words = words + (long long)lane * out_words;
-    io.byte_len = byte_lens + lane;
-    io.counts = counts + lane * x3::E_LAST;
-    io.sizes = sizes + lane * x3::E_LAST;
-    io.flags = flags + lane;
-    io.phases = nullptr;
-    x3::Lane R;
-    x3::Shared sh;
-    x3::encode_lane(x3::ParHost(), prm, caps, lay, io, R, sh);
-  }
-  if (scratch_out && lanes > 0)
-    memcpy(scratch_out, scratch.data(), sizeof(int32_t) * lay.words);
-  return 0;
+  return encode_lanes(
+      text, tlen, lanes, tb, x3::Params{T, W, f1, f2, nl},
+      x3::Caps{D, pair_cap, items1, items0, small_cap, promo_rows, out_words},
+      smem_mask, seed_strs, seed_lens, K, nullptr, x3::WarmN{0, {0, 0}},
+      words, byte_lens, counts, sizes, flags, scratch_out);
+}
+
+// As x3h_encode, every lane from a warm start: init is one lane's scratch
+// (x3h_scratch_words) with the K seeds and the warm tables written in (as
+// the wrapper writes them, x3tpu_torch/vm/driver.py), and pair_n, hub0_n,
+// hub1_n the warm counts, as x3_encode takes them.
+int x3h_encode_warm(const uint8_t* text, const int32_t* tlen, int lanes,
+                    long long tb, int T, int W, int f1, int f2, int nl, int D,
+                    int pair_cap, int items1, int items0, int small_cap,
+                    int promo_rows, int out_words, unsigned smem_mask, int K,
+                    const int32_t* init, int pair_n, int hub0_n, int hub1_n,
+                    uint32_t* words, int32_t* byte_lens, int32_t* counts,
+                    float* sizes, int32_t* flags) {
+  return encode_lanes(
+      text, tlen, lanes, tb, x3::Params{T, W, f1, f2, nl},
+      x3::Caps{D, pair_cap, items1, items0, small_cap, promo_rows, out_words},
+      smem_mask, nullptr, nullptr, K, init,
+      x3::WarmN{pair_n, {hub0_n, hub1_n}}, words, byte_lens, counts, sizes,
+      flags, nullptr);
 }
 
 // Same arguments and outputs as x3_decode in x3_decoder.cu, in host
@@ -208,29 +306,27 @@ int x3h_decode(const uint32_t* words, const int32_t* byte_lens, int lanes,
                uint8_t* out,
                int32_t* out_lens, int32_t* counts, float* sizes,
                int32_t* flags) {
-  const x3::Caps caps{D, pair_cap, items1, items0, small_cap, promo_rows, 0};
-  const x3::Layout lay = x3::make_layout(caps);
-  std::vector<int32_t> scratch;
-  for (int lane = 0; lane < lanes; ++lane) {
-    scratch.assign(lay.words, 0);
-    x3::seed_dict(lay, scratch.data(), seed_strs, seed_lens, K, true);
-    x3::DecIO io;
-    io.words = words + (long long)lane * iw;
-    io.nbytes = byte_lens[lane];
-    io.iw = iw;
-    io.seeds = K;
-    io.scr = scratch.data();
-    io.out = out + (long long)lane * block_bytes;
-    io.block_bytes = block_bytes;
-    io.out_len = out_lens + lane;
-    io.counts = counts + lane * x3::E_LAST;
-    io.sizes = sizes + lane * x3::E_LAST;
-    io.flags = flags + lane;
-    io.phases = nullptr;
-    x3::DecShared sh;
-    x3::decode_lane(x3::ParHost(), lay, io, sh);
-  }
-  return 0;
+  return decode_lanes(
+      words, byte_lens, lanes, iw, block_bytes,
+      x3::Caps{D, pair_cap, items1, items0, small_cap, promo_rows, 0},
+      seed_strs, seed_lens, K, nullptr, x3::WarmN{0, {0, 0}}, out, out_lens,
+      counts, sizes, flags);
+}
+
+// As x3h_decode, every lane from a warm start: init and the counts as
+// x3h_encode_warm takes them (the index model in init as its cumulative
+// sum).
+int x3h_decode_warm(const uint32_t* words, const int32_t* byte_lens,
+                    int lanes, int iw, int block_bytes, int D, int pair_cap,
+                    int items1, int items0, int small_cap, int promo_rows,
+                    int K, const int32_t* init, int pair_n, int hub0_n,
+                    int hub1_n, uint8_t* out, int32_t* out_lens,
+                    int32_t* counts, float* sizes, int32_t* flags) {
+  return decode_lanes(
+      words, byte_lens, lanes, iw, block_bytes,
+      x3::Caps{D, pair_cap, items1, items0, small_cap, promo_rows, 0},
+      nullptr, nullptr, K, init, x3::WarmN{pair_n, {hub0_n, hub1_n}}, out,
+      out_lens, counts, sizes, flags);
 }
 
 }  // extern "C"

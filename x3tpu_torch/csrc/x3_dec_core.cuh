@@ -60,8 +60,12 @@ struct DecIO {
   const uint32_t* words;  // the lane's stream words [iw]
   int nbytes, iw;
   int seeds;              // K: the dictionary seeds the scratch holds
+  WarmN warm;             // the warm start's counts (all 0: none; read
+                          // by decode_lane<true> only)
   int32_t* scr;           // the lane's scratch (Layout::words), zeroed but
-                          // for the seeds (ix as their cumulative sum)
+                          // for the seeds (ix as their cumulative sum) and
+                          // the warm tables (freqs raw, as the rows keep
+                          // them)
   uint8_t* out;           // the lane's zeroed output row [block_bytes]
   int block_bytes;
   int32_t* out_len;
@@ -975,10 +979,15 @@ X3_HD int leader_event(const P& par, const Layout& L, const Planes& pl,
 }
 
 // ---------------------------------------------------------------------------
-// One lane, start to finish (decompress loop, x3.c:285-353).
+// One lane, start to finish (decompress loop, x3.c:285-353).  kWarm: the
+// lane starts from io.warm's counts; without it they are 0, which the
+// compiler folds into the lane's first row preparations (read from
+// arguments, they cost K2 280 more instructions and 2.7 % more time on an
+// unwarmed wave, PERF.md §6, so a warm start has an instantiation of its
+// own).
 // ---------------------------------------------------------------------------
 
-template <class P>
+template <bool kWarm = false, class P>
 X3_HD void decode_lane(const P& par, const Layout& L, const DecIO& io,
                        DecShared& sh) {
   const Planes pl = resolve(L, io.scr, nullptr, nullptr);
@@ -995,6 +1004,13 @@ X3_HD void decode_lane(const P& par, const Layout& L, const DecIO& io,
 #endif
   Leader Ld;
   FamState f0 = {}, f1 = {};
+  if (kWarm) {
+    // the warm hub items and pairs are in the scratch already; each
+    // family's warp keeps its own counts
+    f0.hub_n = io.warm.hub_n[0];
+    f1.hub_n = io.warm.hub_n[1];
+    f1.pair_n = io.warm.pair_n;
+  }
   float hsz[E_IDX1 + 1] = {0.0f, 0.0f, 0.0f};  // warp 3's
   const int w = par.nwarps() == 1 ? W_LEAD : par.warp();
 

@@ -64,10 +64,13 @@ static_assert(kThreads % 32 == 0 && kThreads >= 32 * x3::W_JOBS &&
                   kThreads <= 32 * x3::NW_MAX,
               "whole warps, one a role at least");
 
+// kWarm: every lane from the warm counts (x3_dec_core.cuh decode_lane).
+template <bool kWarm>
 __global__ void __launch_bounds__(kThreads)
 decoder_kernel(const uint32_t* __restrict__ words,
                const int32_t* __restrict__ byte_lens, int iw, int block_bytes,
-               x3::Layout lay, int seeds, int32_t* scratch, uint8_t* out,
+               x3::Layout lay, int seeds, x3::WarmN warm, int32_t* scratch,
+               uint8_t* out,
                int32_t* out_lens, int32_t* counts, float* sizes,
                int32_t* flags, long long* phases) {
   __shared__ x3::DecShared sh;
@@ -77,6 +80,7 @@ decoder_kernel(const uint32_t* __restrict__ words,
   io.nbytes = byte_lens[lane];
   io.iw = iw;
   io.seeds = seeds;
+  io.warm = warm;
   io.scr = scratch + lane * lay.words;
   io.out = out + lane * block_bytes;
   io.block_bytes = block_bytes;
@@ -88,7 +92,7 @@ decoder_kernel(const uint32_t* __restrict__ words,
   x3::ParDev par;
   par.scratch = &sh.red[0][0];
   par.n = kThreads;
-  x3::decode_lane(par, lay, io, sh);
+  x3::decode_lane<kWarm>(par, lay, io, sh);
 }
 
 }  // namespace
@@ -99,7 +103,7 @@ extern "C" {
 // thread, as the loaded module has them: out [3].
 int x3_decoder_info(int* out) {
   cudaFuncAttributes a;
-  const cudaError_t rc = cudaFuncGetAttributes(&a, decoder_kernel);
+  const cudaError_t rc = cudaFuncGetAttributes(&a, decoder_kernel<false>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -111,12 +115,15 @@ int x3_decoder_info(int* out) {
 // x3_scratch_words(...)] and out u8 [lanes, block_bytes] zeroed, out_lens
 // i32 [lanes], counts i32 [lanes, 5], sizes f32 [lanes, 5], flags i32
 // [lanes].  seeds: K, the dictionary seeds the scratch holds (x3_core.cuh
-// seed_dict, ix as their cumulative sum), 0 for none.  Returns
+// seed_dict, ix as their cumulative sum), 0 for none; pair_n, hub0_n,
+// hub1_n: the counts of the warm tables the scratch holds
+// (x3tpu_torch/vm/driver.py warm_scratch), 0 without warm start (any
+// other launches the kernel's warm instantiation).  Returns
 // cudaGetLastError() after the launch.
 int x3_decode(const void* words, const void* byte_lens, int lanes, int iw,
               int block_bytes, int D, int pair_cap, int items1, int items0,
-              int small_cap, int promo_rows, int seeds, void* scratch,
-              void* out,
+              int small_cap, int promo_rows, int seeds, int pair_n,
+              int hub0_n, int hub1_n, void* scratch, void* out,
               void* out_lens, void* counts, void* sizes, void* flags,
               void* stream
 #ifdef X3_DEC_PHASES
@@ -127,11 +134,13 @@ int x3_decode(const void* words, const void* byte_lens, int lanes, int iw,
   void* phases = nullptr;
 #endif
   const x3::Caps caps{D, pair_cap, items1, items0, small_cap, promo_rows, 0};
-  decoder_kernel<<<lanes, kThreads, 0, (cudaStream_t)stream>>>(
+  const x3::WarmN warm{pair_n, {hub0_n, hub1_n}};
+  const auto kernel = warm.any() ? decoder_kernel<true> : decoder_kernel<false>;
+  kernel<<<lanes, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)words, (const int32_t*)byte_lens, iw, block_bytes,
-      x3::make_layout(caps), seeds,
-      (int32_t*)scratch, (uint8_t*)out, (int32_t*)out_lens, (int32_t*)counts,
-      (float*)sizes, (int32_t*)flags, (long long*)phases);
+      x3::make_layout(caps), seeds, warm, (int32_t*)scratch, (uint8_t*)out,
+      (int32_t*)out_lens, (int32_t*)counts, (float*)sizes, (int32_t*)flags,
+      (long long*)phases);
   return (int)cudaGetLastError();
 }
 

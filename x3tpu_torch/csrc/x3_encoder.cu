@@ -32,9 +32,10 @@
 //   dynamic shared memory where the launch's plan puts them
 //   (x3tpu_torch/vm/driver.py smem_plan); the rest stays in the zeroed
 //   global scratch, reached by the same code through a pointer.  A
-//   seeded launch (the wrapper writes the dictionary seeds into the
-//   scratch) copies the seeded planes into shared memory once, at the
-//   lane's start, and nothing per event.
+//   seeded launch (the wrapper writes the dictionary seeds and, for a
+//   warm start, the warm context tables into the scratch) copies its
+//   planes into shared memory once, at the lane's start, and nothing per
+//   event.
 // - 512 worker threads: the scan's share of a thread halves against 256
 //   (992 workers, 1024 threads in all, measured slower).
 //
@@ -55,10 +56,12 @@ static_assert(kThreads % 32 == 0 && kThreads >= 256 &&
 static_assert(sizeof(x3::Lane) + sizeof(x3::Shared) <= x3::SMEM_STATIC,
               "the plan's budget assumes at most SMEM_STATIC static bytes");
 
+// kWarm: every lane from the warm counts (x3_core.cuh encode_lane).
+template <bool kWarm>
 __global__ void __launch_bounds__(kThreads + 32)
 encoder_kernel(const uint8_t* __restrict__ text, const int32_t* __restrict__ tlen,
                int64_t tb, x3::Params prm, x3::Caps caps, x3::Layout lay,
-               int seeds, int32_t* scratch, uint32_t* words,
+               int seeds, x3::WarmN warm, int32_t* scratch, uint32_t* words,
                int32_t* byte_lens, int32_t* counts, float* sizes,
                int32_t* flags, long long* phases) {
   __shared__ x3::Lane R;
@@ -70,6 +73,7 @@ encoder_kernel(const uint8_t* __restrict__ text, const int32_t* __restrict__ tle
   io.tb = tb;
   io.tlen = tlen[lane];
   io.seeds = seeds;
+  io.warm = warm;
   io.scr = scratch + lane * lay.words;
   io.smem = planes;
   io.words = words + lane * caps.out_words;
@@ -88,7 +92,7 @@ encoder_kernel(const uint8_t* __restrict__ text, const int32_t* __restrict__ tle
   x3::ParDev par;
   par.scratch = &sh.red[0][0];
   par.n = kThreads;
-  x3::encode_lane(par, prm, caps, lay, io, R, sh);
+  x3::encode_lane<kWarm>(par, prm, caps, lay, io, R, sh);
 }
 
 x3::Caps make_caps(int D, int pair_cap, int items1, int items0, int small_cap,
@@ -121,11 +125,21 @@ void x3_dict_layout(int D, int pair_cap, int items1, int items0,
   out[4] = lay.ix;
 }
 
+// Offsets, in int32 words of a lane's scratch, of context family fam's
+// planes (0: ctx0, 1: ctx1), the ones a warm start writes among them: out
+// [12] in x3_core.cuh fam_offsets' order.
+void x3_fam_layout(int D, int pair_cap, int items1, int items0,
+                   int small_cap, int promo_rows, int fam, long long* out) {
+  const x3::Layout lay = x3::make_layout(
+      make_caps(D, pair_cap, items1, items0, small_cap, promo_rows, 0));
+  x3::fam_offsets(fam ? lay.f1 : lay.f0, out);
+}
+
 // K1's registers a thread, static shared memory and local (spill) bytes a
 // thread, as the loaded module has them: out [3].
 int x3_encoder_info(int* out) {
   cudaFuncAttributes a;
-  const cudaError_t rc = cudaFuncGetAttributes(&a, encoder_kernel);
+  const cudaError_t rc = cudaFuncGetAttributes(&a, encoder_kernel<false>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -138,14 +152,17 @@ int x3_encoder_info(int* out) {
 // i32 [lanes, 5], sizes f32 [lanes, 5], flags i32 [lanes].  smem_mask: the
 // planes (x3_core.cuh PL_*) that live in shared memory; seeds: K, the
 // dictionary seeds the scratch holds (x3_core.cuh seed_dict, ix as
-// freqs), 0 for none.  Returns
+// freqs), 0 for none; pair_n, hub0_n, hub1_n: the counts of the warm
+// tables the scratch holds (x3tpu_torch/vm/driver.py warm_scratch), 0
+// without warm start (any other launches the kernel's warm
+// instantiation).  Returns
 // cudaErrorInvalidValue when they need more than a block may have, else
 // cudaGetLastError() after the launch.
 int x3_encode(const void* text, const void* tlen, int lanes, long long tb,
               int T, int W, int f1, int f2, int nl, int D, int pair_cap,
               int items1, int items0, int small_cap, int promo_rows,
-              int out_words, unsigned smem_mask, int seeds, void* scratch,
-              void* words,
+              int out_words, unsigned smem_mask, int seeds, int pair_n,
+              int hub0_n, int hub1_n, void* scratch, void* words,
               void* byte_lens, void* counts, void* sizes, void* flags,
               void* stream
 #ifdef X3_PHASES
@@ -162,14 +179,15 @@ int x3_encode(const void* text, const void* tlen, int lanes, long long tb,
   x3::place_smem(lay, tb, smem_mask);
   if (lay.smem_bytes > x3::SMEM_BLOCK_MAX - x3::SMEM_STATIC)
     return (int)cudaErrorInvalidValue;
+  const x3::WarmN warm{pair_n, {hub0_n, hub1_n}};
+  const auto kernel = warm.any() ? encoder_kernel<true> : encoder_kernel<false>;
   const cudaError_t rc = cudaFuncSetAttribute(
-      encoder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)lay.smem_bytes);
   if (rc != cudaSuccess) return (int)rc;
-  encoder_kernel<<<lanes, kThreads + 32, lay.smem_bytes,
-                   (cudaStream_t)stream>>>(
+  kernel<<<lanes, kThreads + 32, lay.smem_bytes, (cudaStream_t)stream>>>(
       (const uint8_t*)text, (const int32_t*)tlen, tb, prm, caps, lay, seeds,
-      (int32_t*)scratch, (uint32_t*)words, (int32_t*)byte_lens,
+      warm, (int32_t*)scratch, (uint32_t*)words, (int32_t*)byte_lens,
       (int32_t*)counts, (float*)sizes, (int32_t*)flags, (long long*)phases);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,10 @@
-// The seed trainer of the port: a copy of what x3h_train_ranked needs
-// from native/x3host.cpp (the JAX package's host codec): its Dict, its
-// find_best_match and the hit/miss walk of Codec::encode, then
-// Codec::dump_dict(..., order=1).  It encodes a sample and returns the
-// dictionary fragments the sample used most, hottest first, ties in
-// insertion order.
+// The seed trainer of the port: a copy of what x3h_train_ranked and
+// x3h_train_tape need from native/x3host.cpp (the JAX package's host
+// codec): its Dict, its find_best_match and the hit/miss walk of
+// Codec::encode, then Codec::dump_dict(..., order=1).  It encodes a sample
+// and returns the dictionary fragments the sample used most, hottest
+// first, ties in insertion order; x3h_train_tape also returns the walk's
+// events as seed indices, the warm-start tape (x3tpu_torch/warm.py).
 //
 // Only what training needs is copied.  The models, the contexts and the
 // arithmetic coder shape the stream but never which fragments enter the
@@ -132,8 +133,12 @@ size_t nl(const Params& prm, size_t len) {  // x3.c:357-370
                      case 2: return 6; case 3: return 8; default: return 9999; }
 }
 
-// The dictionary Codec::encode leaves behind, with its use counts.
-void walk(const Params& prm, const uint8_t* data, size_t size, Dict& dict) {
+// The dictionary Codec::encode leaves behind, with its use counts.  Where
+// tape is not null, one entry an event is appended to it: the hit's tag,
+// or -1 for a new fragment (E_NEW resets the context chain, x3.c:423-425;
+// x3host.cpp records the same at :620 and :626).
+void walk(const Params& prm, const uint8_t* data, size_t size, Dict& dict,
+          std::vector<long>* tape = nullptr) {
   // zero-pad the tail so window scans never read past the buffer
   std::vector<uint8_t> buf(size + size_t(prm.window) + kMaxMatch, 0);
   if (size) std::memcpy(buf.data(), data, size);
@@ -144,14 +149,34 @@ void walk(const Params& prm, const uint8_t* data, size_t size, Dict& dict) {
     const size_t best = find_best_match(prm, dict, base + p);
     if (tag >= 0 && nl(prm, dlen) >= best && p + dlen <= size) {
       dict.touch(size_t(tag));  // a hit: move-to-front, one more use
+      if (tape) tape->push_back(tag);
       p += dlen;
     } else {  // a new fragment (x3.c:398-428)
+      if (tape) tape->push_back(-1);
       size_t len = best;
       if (p + len > size) len = size - p;
       if (!dict.has_exact(base + p, int(len))) dict.insert(base + p, int(len));
       p += len;
     }
   }
+}
+
+// The k most used tags, by descending use count, ties in insertion order
+// (x3host.cpp dump_order(k, 1)), written as seeds (strs: k x 32 bytes,
+// zero-padded; lens: k).  Returns the kept tags.
+std::vector<size_t> dump_ranked(const Dict& dict, size_t k, uint8_t* strs,
+                                int32_t* lens) {
+  std::vector<size_t> tags(dict.size());
+  for (size_t t = 0; t < tags.size(); ++t) tags[t] = t;
+  std::stable_sort(tags.begin(), tags.end(), [&dict](size_t a, size_t b) {
+    return dict.uses(a) > dict.uses(b);
+  });
+  tags.resize(std::min(dict.size(), k));
+  for (size_t i = 0; i < tags.size(); ++i) {
+    std::memcpy(strs + i * kMaxMatch, dict.str_of(tags[i]), kMaxMatch);
+    lens[i] = dict.len_of(tags[i]);
+  }
+  return tags;
 }
 
 }  // namespace
@@ -169,17 +194,32 @@ size_t x3h_train_ranked(const uint8_t* data, size_t size,
   const Params prm{max_match_count, window, factor1, factor2, nl_remap};
   Dict dict;
   walk(prm, data, size, dict);
-  std::vector<size_t> tags(dict.size());
-  for (size_t t = 0; t < tags.size(); ++t) tags[t] = t;
-  std::stable_sort(tags.begin(), tags.end(), [&dict](size_t a, size_t b) {
-    return dict.uses(a) > dict.uses(b);
-  });
-  const size_t n = std::min(dict.size(), k);
+  return dump_ranked(dict, k, strs, lens).size();
+}
+
+// As x3h_train_ranked, and the warm-start tape (x3host.cpp
+// x3h_train_tape): one i32 a training event, the kept-seed index of the
+// hit's tag, or -1 for a new fragment or a tag not kept (map_tape).  At
+// most tape_cap entries, the head of the sequence; *tape_len gets the
+// count written.  Returns the seed count.
+size_t x3h_train_tape(const uint8_t* data, size_t size, int max_match_count,
+                      long window, long factor1, long factor2, int nl_remap,
+                      uint8_t* strs, int32_t* lens, size_t k, int32_t* tape,
+                      size_t tape_cap, size_t* tape_len) {
+  const Params prm{max_match_count, window, factor1, factor2, nl_remap};
+  Dict dict;
+  std::vector<long> raw;
+  walk(prm, data, size, dict, &raw);
+  const std::vector<size_t> kept = dump_ranked(dict, k, strs, lens);
+  std::unordered_map<size_t, int32_t> index;
+  for (size_t i = 0; i < kept.size(); ++i) index.emplace(kept[i], int32_t(i));
+  const size_t n = std::min(raw.size(), tape_cap);
   for (size_t i = 0; i < n; ++i) {
-    std::memcpy(strs + i * kMaxMatch, dict.str_of(tags[i]), kMaxMatch);
-    lens[i] = dict.len_of(tags[i]);
+    const auto it = raw[i] >= 0 ? index.find(size_t(raw[i])) : index.end();
+    tape[i] = it == index.end() ? -1 : it->second;
   }
-  return n;
+  *tape_len = n;
+  return kept.size();
 }
 
 }  // extern "C"

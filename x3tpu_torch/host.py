@@ -1,5 +1,5 @@
-"""The port's seed trainer on the host CPU (``x3tpu.host.train_seeds``):
-``csrc/x3_train.cpp``, built with g++ at first use into
+"""The port's seed trainer on the host CPU (``x3tpu.host.train_seeds`` and
+``train_tape``): ``csrc/x3_train.cpp``, built with g++ at first use into
 ``build/x3tpu_torch/`` and loaded with ctypes.  Without g++ it raises; it
 never trains another way."""
 
@@ -12,10 +12,11 @@ import pathlib
 import shutil
 import subprocess
 import threading
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
+from x3tpu_torch import warm
 from x3tpu_torch.config import MAX_MATCH_LEN, X3Params
 
 _PKG = pathlib.Path(__file__).resolve().parent
@@ -61,6 +62,9 @@ def _load() -> ctypes.CDLL:
             lib.x3h_train_ranked.restype = sz
             lib.x3h_train_ranked.argtypes = [ctypes.c_char_p, sz, i, lg, lg,
                                              lg, i, p, p, sz]
+            lib.x3h_train_tape.restype = sz
+            lib.x3h_train_tape.argtypes = [ctypes.c_char_p, sz, i, lg, lg, lg,
+                                           i, p, p, sz, p, sz, p]
             _lib = lib
         return _lib
 
@@ -80,3 +84,25 @@ def train_seeds(data: bytes, params: X3Params = X3Params(),
         params.magic_factor1, params.magic_factor2,
         1 if params.nl_remap else 0, strs.ctypes.data, lens.ctypes.data, k)
     return strs[:n], lens[:n]
+
+
+def train_tape(data: bytes, params: X3Params = X3Params(), k: int = 256,
+               tape_cap: int = 0) -> Tuple[np.ndarray, np.ndarray, List[int]]:
+    """The seeds of :func:`train_seeds` and the warm-start tape, as
+    ``x3tpu.host.train_tape`` makes them: one entry a training event, the
+    kept seed index of the hit's tag, or ``warm.RESET`` for a new fragment
+    or a tag not kept; at most ``tape_cap`` (default ``warm.TAPE_MAX``)
+    entries, the head of the sequence.  Returns (strs u8 [n, 32], lens i32
+    [n], tape)."""
+    lib = _load()
+    strs = np.zeros((k, MAX_MATCH_LEN), np.uint8)
+    lens = np.zeros((k,), np.int32)
+    tape = np.zeros((tape_cap or warm.TAPE_MAX,), np.int32)
+    tape_len = ctypes.c_size_t()
+    n = lib.x3h_train_tape(
+        bytes(data), len(data), params.max_match_count, params.window,
+        params.magic_factor1, params.magic_factor2,
+        1 if params.nl_remap else 0, strs.ctypes.data, lens.ctypes.data, k,
+        tape.ctypes.data, len(tape), ctypes.byref(tape_len))
+    return strs[:n], lens[:n], [warm.RESET if v < 0 else int(v)
+                                for v in tape[: tape_len.value]]

@@ -14,18 +14,20 @@ decoder knows block boundaries and exact decoded sizes:
     block  u32                   — nominal uncompressed block size
     [seeds] if flag bit 0: count u16, then per seed: len u8 + bytes
     [tape]  if flag bit 1: the model warm-start tape
+            (``x3tpu_torch.warm.encode_tape``: u32 count, then LEB128
+            varints of the seed indices); requires the seed flag
     table  count x (orig_len u32, comp_len u32)
     payloads, concatenated in block order (each a raw x3 stream)
 
-All integers little-endian.  The port has no warm start: it writes no
-tape, and reading a container that carries one raises
-``NotImplementedError``.
+All integers little-endian.
 """
 
 from __future__ import annotations
 
 import struct
 from typing import List, Sequence
+
+from x3tpu_torch import warm
 
 MAGIC = b"X3TC"
 VERSION = 1
@@ -46,15 +48,18 @@ def split_blocks(data: bytes, block_bytes: int) -> List[bytes]:
 
 def pack_container(
     payloads: Sequence[bytes], orig_lens: Sequence[int], block_bytes: int,
-    seeds: Sequence[bytes] = (),
+    seeds: Sequence[bytes] = (), warm_tape: Sequence[int] = (),
 ) -> bytes:
     """The container of ``payloads`` (``seeds``: the dictionary seeds every
-    block was coded from, each 1-32 bytes)."""
+    block was coded from, each 1-32 bytes; ``warm_tape``: the warm-start
+    tape over them, ``x3tpu_torch.warm``)."""
     if len(payloads) != len(orig_lens):
         raise ValueError(
             f"{len(payloads)} payloads but {len(orig_lens)} orig_lens"
         )
-    flags = FLAG_SEEDS if seeds else 0
+    if warm_tape and not seeds:
+        raise ValueError("warm tape requires seeds")
+    flags = (FLAG_SEEDS if seeds else 0) | (FLAG_WARM if warm_tape else 0)
     parts = [
         _HEADER.pack(MAGIC, VERSION, flags, 0, len(payloads), block_bytes)
     ]
@@ -64,6 +69,8 @@ def pack_container(
             if not 1 <= len(frag) <= 32:
                 raise ValueError(f"a seed of {len(frag)} bytes")
             parts.append(struct.pack("<B", len(frag)) + frag)
+    if warm_tape:
+        parts.append(warm.encode_tape(list(warm_tape)))
     for o, p in zip(orig_lens, payloads):
         parts.append(_ENTRY.pack(o, len(p)))
     parts.extend(payloads)
@@ -75,8 +82,8 @@ def is_container(data: bytes) -> bool:
 
 
 def unpack_container(data: bytes):
-    """Returns (payloads, orig_lens, block_bytes, seeds).  Raises
-    ValueError on any malformed/truncated container."""
+    """Returns (payloads, orig_lens, block_bytes, seeds, warm_tape).
+    Raises ValueError on any malformed/truncated container."""
     try:
         return _unpack_container(data)
     except (struct.error, IndexError) as e:  # truncated header/seeds/table
@@ -89,10 +96,6 @@ def _unpack_container(data: bytes):
         raise ValueError("not an x3tpu container")
     if ver != VERSION:
         raise ValueError(f"unsupported container version {ver}")
-    if flags & FLAG_WARM:
-        raise NotImplementedError(
-            "x3tpu_torch: containers with a warm-start tape are not "
-            "supported by the port")
     off = _HEADER.size
     seeds: List[bytes] = []
     if flags & FLAG_SEEDS:
@@ -103,6 +106,11 @@ def _unpack_container(data: bytes):
             off += 1
             seeds.append(data[off : off + ln])
             off += ln
+    warm_tape: List[int] = []
+    if flags & FLAG_WARM:
+        if not (flags & FLAG_SEEDS):
+            raise ValueError("warm tape without seeds")
+        warm_tape, off = warm.decode_tape(data, off)
     table = []
     for _ in range(count):
         table.append(_ENTRY.unpack_from(data, off))
@@ -114,4 +122,4 @@ def _unpack_container(data: bytes):
         off += comp
     if off != len(data):
         raise ValueError("container length mismatch")
-    return payloads, orig_lens, block_bytes, seeds
+    return payloads, orig_lens, block_bytes, seeds, warm_tape

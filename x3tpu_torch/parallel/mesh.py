@@ -4,7 +4,8 @@ and of x3tpu's sharded VM drivers (``x3tpu/vm/driver.py``
 
 x3tpu shards a wave over a 1-D ``blocks`` mesh (``P("blocks")``): device
 i runs the i-th contiguous group of L / nd lanes, and the dictionary seeds
-go to every device (``P()``).  Here a :class:`Mesh` is a tuple of
+and the warm state go to every device (``P()``; x3tpu/parallel/
+runtime.py:355, 386).  Here a :class:`Mesh` is a tuple of
 ``torch.device`` entries, each CUDA entry with a stream of its own.
 :func:`encode_sharded` and :func:`decode_sharded` launch every group, each
 as launches of at most :func:`launch_lanes` lanes, before they read any
@@ -157,10 +158,11 @@ def _sharded(lanes: int, mesh: Mesh, lane_bytes: int, caps: CodecCaps,
 
 def encode_sharded(text: np.ndarray, tlen: np.ndarray, params: X3Params,
                    caps: CodecCaps, mesh: Mesh, seeds=None,
-                   mem_budget: Optional[int] = None):
+                   mem_budget: Optional[int] = None, warm=None):
     """Encode one packed wave (``codec.pack_blocks``; its lanes a multiple
     of the mesh size) over ``mesh``: kernel K1 on CUDA entries, the plain
-    PyTorch encoder on CPU entries, every lane from ``seeds`` where given.
+    PyTorch encoder on CPU entries, every lane from ``seeds`` and the warm
+    state ``warm`` (``x3tpu_torch.warm.WarmArrays``) where given.
     ``mem_budget``: the bytes of one launch (default: :func:`launch_lanes`'
     share of the card).  Returns ``codec.encode_blocks_chunked``'s tuple
     on the host."""
@@ -169,34 +171,36 @@ def encode_sharded(text: np.ndarray, tlen: np.ndarray, params: X3Params,
         if dev.type != "cuda":
             return codec.encode_blocks_chunked(
                 torch.from_numpy(text[lo:hi]), torch.from_numpy(tlen[lo:hi]),
-                params, caps, seeds)
+                params, caps, seeds, warm)
         with torch.cuda.device(dev), torch.cuda.stream(stream):
             return driver.launch_encode(
                 driver.to_device(text[lo:hi], dev),
                 driver.to_device(tlen[lo:hi], dev), params, caps, seeds,
-                stream=stream)
+                warm, stream=stream)
 
     return _sharded(len(tlen), mesh, driver.encoder_lane_bytes(params, caps),
                     caps, mem_budget, launch)
 
 
 def decode_sharded(words: np.ndarray, byte_lens: np.ndarray, caps: CodecCaps,
-                   mesh: Mesh, seeds=None, mem_budget: Optional[int] = None):
+                   mesh: Mesh, seeds=None, mem_budget: Optional[int] = None,
+                   warm=None):
     """Decode one packed wave (``words`` u32 [L, IW]; L a multiple of the
     mesh size) over ``mesh``: kernel K2 on CUDA entries, the plain PyTorch
-    decoder on CPU entries.  Returns ``codec.decode_blocks_chunked``'s
+    decoder on CPU entries, every lane from the encoder's ``seeds`` and
+    ``warm`` where given.  Returns ``codec.decode_blocks_chunked``'s
     tuple on the host; a corrupt or endless stream raises as there."""
 
     def launch(dev, stream, lo, hi):
         if dev.type != "cuda":
             return codec.decode_blocks_chunked(
                 torch.from_numpy(words[lo:hi].astype(np.int64)),
-                torch.from_numpy(byte_lens[lo:hi]), caps, seeds)
+                torch.from_numpy(byte_lens[lo:hi]), caps, seeds, warm)
         with torch.cuda.device(dev), torch.cuda.stream(stream):
             return driver.launch_decode(
                 driver.to_device(words[lo:hi].view(np.int32), dev),
                 driver.to_device(byte_lens[lo:hi], dev), caps, seeds,
-                stream=stream)
+                warm, stream=stream)
 
     return _sharded(len(byte_lens), mesh,
                     driver.decoder_lane_bytes(caps, words.shape[1]), caps,

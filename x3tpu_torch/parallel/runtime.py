@@ -1,15 +1,15 @@
 """Runtime of the port (``x3tpu.parallel.runtime``): block splitting,
-capacity heuristics, dictionary seeds, waves of independent blocks on one
-device or over a mesh of lane groups (``x3tpu_torch.parallel.mesh``), run
-as launches sized to the device's memory, overflow auto-retry, the wave
-journal, container framing; ``compress`` and ``decompress``.
+capacity heuristics, dictionary seeds and the model warm start
+(``x3tpu_torch.warm``), waves of independent blocks on one device or over
+a mesh of lane groups (``x3tpu_torch.parallel.mesh``), run as launches
+sized to the device's memory, overflow auto-retry, the wave journal,
+container framing; ``compress`` and ``decompress``.
 
 The engine follows the device and nothing else: ``device="cuda"`` runs the
 CUDA kernels (``x3tpu_torch.vm.driver``) and raises without a card,
 ``device="cpu"`` runs the plain PyTorch codec (``x3tpu_torch.codec``); a
 mesh's entries are of the same type.  A configuration the kernels cannot
-run raises; nothing is demoted.  Not ported: the warm tape (a container
-that carries one raises ``NotImplementedError``).
+run raises; nothing is demoted.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from x3tpu_torch import codec
+from x3tpu_torch import warm as wm
 from x3tpu_torch.config import (MAX_MATCH_LEN, CodecCaps, X3Params,
                                 resolve_device)
 from x3tpu_torch.parallel import blocks as blk
@@ -34,7 +35,8 @@ from x3tpu_torch.utils.stats import CodecStats
 MAX_RETRIES = 3  # capacity doublings before an overflow is raised
 # the stream of an empty block, the shortest valid one: a wave's pad lanes
 # decode it (the decoder's state at its EOF is the same with or without
-# seeds)
+# seeds and warm state: the event model, the first thing the EOF reads,
+# starts the same)
 EMPTY_STREAM = bytes.fromhex("ff170000")
 MIN_STREAM = len(EMPTY_STREAM)
 
@@ -198,12 +200,14 @@ def encode_wave(
     seeds=None,
     mem_budget: Optional[int] = None,
     mesh: Optional[meshmod.Mesh] = None,
+    warm=None,
 ) -> RunResult:
     """Encode one wave of blocks with capacity auto-retry: any lane
     overflow, in any lane group, re-runs the wave at doubled capacities,
     up to MAX_RETRIES times (the output stays the exact reference-format
     stream).  Every lane starts from the dictionary ``seeds`` (strs u8
-    [K, 32], lens i32 [K]; :func:`seeds_to_arrays`) where given.  The
+    [K, 32], lens i32 [K]; :func:`seeds_to_arrays`) and the warm state
+    ``warm`` (``x3tpu_torch.warm.WarmArrays``) where given.  The
     wave runs on ``device``, or over ``mesh`` (padded with empty blocks to
     a multiple of its size); each attempt runs as launches of at most
     ``mesh.launch_lanes`` lanes (``mem_budget`` bytes a launch).  Neither the
@@ -215,7 +219,7 @@ def encode_wave(
     for attempt in range(MAX_RETRIES + 1):
         text, tlen = codec.pack_blocks(padded, params, caps)
         words, byte_lens, counts, sizes, overflow = meshmod.encode_sharded(
-            text, tlen, params, caps, mesh, seeds, mem_budget)
+            text, tlen, params, caps, mesh, seeds, mem_budget, warm)
         try:
             codec._check_overflow(overflow)
             break
@@ -237,16 +241,17 @@ def decode_wave(
     seeds=None,
     mem_budget: Optional[int] = None,
     mesh: Optional[meshmod.Mesh] = None,
+    warm=None,
 ) -> RunResult:
     """Decode one wave of streams with capacity auto-retry: an output
     overflow doubles ``block_bytes``, any overflow doubles the state caps,
-    up to MAX_RETRIES times.  ``seeds`` must be the encoder's.  The wave
-    runs on ``device``, or over ``mesh``, its pad lanes holding
-    EMPTY_STREAM (x3tpu's pad); each attempt runs as launches of at most
-    ``mesh.launch_lanes`` lanes (``mem_budget``).  A stream shorter than
-    the shortest valid one (MIN_STREAM bytes), a corrupt stream, and a
-    block whose decoded length is not its ``orig_lens`` entry (None: any
-    length) raise ValueError."""
+    up to MAX_RETRIES times.  ``seeds`` and ``warm`` must be the
+    encoder's.  The wave runs on ``device``, or over ``mesh``, its pad
+    lanes holding EMPTY_STREAM (x3tpu's pad); each attempt runs as
+    launches of at most ``mesh.launch_lanes`` lanes (``mem_budget``).  A
+    stream shorter than the shortest valid one (MIN_STREAM bytes), a
+    corrupt stream, and a block whose decoded length is not its
+    ``orig_lens`` entry (None: any length) raise ValueError."""
     mesh = _wave_mesh(mesh, device)
     nblocks = len(payloads)
     if any(len(s) < MIN_STREAM for s in payloads):
@@ -263,7 +268,7 @@ def decode_wave(
         byte_lens[i] = len(s)
     for attempt in range(MAX_RETRIES + 1):
         out, out_lens, counts, sizes, overflow = meshmod.decode_sharded(
-            words, byte_lens, caps, mesh, seeds, mem_budget)
+            words, byte_lens, caps, mesh, seeds, mem_budget, warm)
         try:
             codec._check_overflow(overflow)
             break
@@ -299,6 +304,7 @@ def compress(
     device="cuda",
     mesh: Optional[meshmod.Mesh] = None,
     force_container: bool = False,
+    warm_start: bool = False,
 ) -> bytes:
     """Compress ``data``.  Single block -> raw reference-format stream
     (``force_container``: an X3TC container of one block); multiple blocks
@@ -312,9 +318,15 @@ def compress(
     seed dictionary of at most ``seed_k`` fragments on a strided sample of
     ``seed_sample`` bytes (the head of each block) and starts every block
     from it; the seeds travel in the container, so a seeded output is
-    always one.  A single block is never seeded.  ``journal_path`` keeps a
-    :class:`WaveJournal` there: a run of the same job resumes after the
-    waves it records, and the file is removed on success."""
+    always one.  A single block is never seeded.  ``warm_start`` (x3tpu's
+    extension; implies ``dict_seed``) also trains the warm-start tape on
+    that sample and starts every block's context and pair models from
+    its replay (``x3tpu_torch.warm``); the tape travels in the container
+    too.  ``journal_path`` keeps a :class:`WaveJournal` there: a run of
+    the same job resumes after the waves it records, and the file is
+    removed on success."""
+    if warm_start:
+        dict_seed = True
     if block_bytes is None:
         block_bytes = max(len(data), 1)
     parts = blk.split_blocks(data, block_bytes)
@@ -327,35 +339,49 @@ def compress(
     journal = None
     if journal_path is not None:
         # the wave width (the mesh size times lanes_per_device) is in the
-        # fingerprint: waves recorded at another width hold other blocks;
-        # the port has no warm start (False)
+        # fingerprint: waves recorded at another width hold other blocks
         fp = hashlib.sha256(
             repr((params, block_bytes, dict_seed, seed_k, len(data), wave,
-                  False)).encode() + data[:4096] + data[-4096:]
+                  warm_start)).encode() + data[:4096] + data[-4096:]
         ).hexdigest()
         journal = WaveJournal(journal_path, fp)
 
     seed_bytes: List[bytes] = []
     seeds = None
+    warm_tape: List[int] = []
+    warm = None
     if dict_seed and len(parts) > 1:
-        if journal is not None and journal.seed_bytes is not None:
+        # the journal keeps no tape: a warm start trains again (the same
+        # sample gives the same seeds and tape)
+        if (journal is not None and journal.seed_bytes is not None
+                and not warm_start):
             seed_bytes = journal.seed_bytes
         else:
             from x3tpu_torch import host
 
             # a strided sample, one slice a block, usage-ranked: a head-only
             # sample over-fits the input's first file
-            # (x3tpu/parallel/runtime.py:591-598)
+            # (x3tpu/parallel/runtime.py:591-610)
             per = max(seed_sample // len(parts), 1)
             sample = b"".join(p[:per] for p in parts)
-            strs, lens = host.train_seeds(
-                sample, params, min(seed_k, caps.dict_cap // 2))
+            k = min(seed_k, caps.dict_cap // 2)
+            if warm_start:
+                strs, lens, warm_tape = host.train_tape(sample, params, k)
+            else:
+                strs, lens = host.train_seeds(sample, params, k)
             seed_bytes = [strs[i, : lens[i]].tobytes()
                           for i in range(len(lens))]
             if journal is not None:
                 journal.record_seeds(seed_bytes)
         if seed_bytes:
             seeds = seeds_to_arrays(seed_bytes)
+        if warm_start and seed_bytes and warm_tape:
+            # through the container's bytes (collapse and trim), so the
+            # encoder replays exactly what the decoder reads back
+            warm_tape, _ = wm.decode_tape(wm.encode_tape(warm_tape))
+            warm = wm.pack(wm.replay(warm_tape, len(seed_bytes)))
+            wm.check_fits(warm, caps.dict_cap, caps.pair_cap,
+                          caps.ctx_small_cap, min(caps.dict_cap, 8192))
     all_payloads: List[bytes] = []
     all_stats = CodecStats.zero()
     for i in range(0, len(parts), wave):
@@ -366,7 +392,7 @@ def compress(
             all_stats = all_stats.merge(done_stats)
             continue
         res = encode_wave(parts[i : i + wave], params, caps, device=device,
-                          seeds=seeds, mesh=mesh)
+                          seeds=seeds, mesh=mesh, warm=warm)
         if journal is not None:
             journal.record(widx, res.payloads, res.stats)
         all_payloads.extend(res.payloads)
@@ -381,7 +407,8 @@ def compress(
             and not blk.is_container(all_payloads[0])):
         return all_payloads[0]
     return blk.pack_container(all_payloads, [len(p) for p in parts],
-                              block_bytes, seeds=seed_bytes)
+                              block_bytes, seeds=seed_bytes,
+                              warm_tape=warm_tape)
 
 
 def decompress(
@@ -394,15 +421,18 @@ def decompress(
     mesh: Optional[meshmod.Mesh] = None,
 ) -> bytes:
     """Decompress a raw reference-format stream or an X3TC container (its
-    dictionary seeds included), on ``device`` or over ``mesh``.  The
+    dictionary seeds and warm-start tape included), on ``device`` or over
+    ``mesh``.  The
     stream is self-describing: no parameter shapes decoding.  A raw
     stream's output size is not recorded, so its buffer starts from a
     64:1 guess (``max_output`` overrides it) and grows on overflow.  A
     malformed stream raises ValueError."""
     if blk.is_container(data):
-        payloads, orig_lens, block_bytes, seed_bytes = blk.unpack_container(
-            data)
+        (payloads, orig_lens, block_bytes, seed_bytes,
+         warm_tape) = blk.unpack_container(data)
         seeds = seeds_to_arrays(seed_bytes) if seed_bytes else None
+        warm = (wm.pack(wm.replay(warm_tape, len(seed_bytes)))
+                if warm_tape else None)
         caps = caps or caps_for_block(max(block_bytes, 1024))
         if caps.block_bytes < block_bytes:
             caps = dataclasses.replace(caps, block_bytes=block_bytes)
@@ -411,7 +441,8 @@ def decompress(
         wave = _wave_lanes(len(payloads), mesh, lanes_per_device)
         for i in range(0, len(payloads), wave):
             res = decode_wave(payloads[i : i + wave], orig_lens[i : i + wave],
-                              caps, device=device, seeds=seeds, mesh=mesh)
+                              caps, device=device, seeds=seeds, mesh=mesh,
+                              warm=warm)
             out_parts.extend(res.payloads)
             all_stats = all_stats.merge(res.stats)
         if stats_out is not None:

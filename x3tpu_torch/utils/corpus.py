@@ -128,6 +128,43 @@ def mb_blocks(name: str) -> list:
     return [data[i * block : (i + 1) * block] for i in range(count)]
 
 
+# The warm-start reference (tools/mb_oracle.py --warm records it in
+# WARM_ORACLE): WARM_BLOCKS blocks of WARM_BLOCK bytes, the head of
+# mb_corpus, at -t 15 -w 8, every block from the seeds and the tape that
+# compress(warm_start=True) trains on them (WARM_SEEDS seeds on
+# warm_sample's strided sample).
+WARM_BLOCK, WARM_BLOCKS, WARM_SEEDS = 16 << 10, 8, 256
+WARM_ORACLE = ROOT / "x3tpu_torch" / "testdata" / "warm_streams.json"
+
+
+def warm_blocks() -> list:
+    """The blocks of the warm-start reference."""
+    data = mb_corpus(WARM_BLOCK * WARM_BLOCKS)
+    return [data[i * WARM_BLOCK : (i + 1) * WARM_BLOCK]
+            for i in range(WARM_BLOCKS)]
+
+
+def warm_sample(blocks, seed_sample: int = 64 * 1024) -> bytes:
+    """compress's training sample of ``blocks``: the head of each block,
+    ``seed_sample // len(blocks)`` bytes (x3tpu_torch/parallel/runtime.py
+    compress)."""
+    per = max(seed_sample // len(blocks), 1)
+    return b"".join(b[:per] for b in blocks)
+
+
+def warm_digests(seed_bytes, tape) -> dict:
+    """sha256 of trained seeds (each a length byte and its bytes, as the
+    container stores them) and of a tape's container bytes."""
+    import hashlib
+
+    from x3tpu_torch import warm
+
+    seeds = b"".join(bytes([len(s)]) + bytes(s) for s in seed_bytes)
+    return {"seeds_sha256": hashlib.sha256(seeds).hexdigest(),
+            "tape_sha256": hashlib.sha256(
+                warm.encode_tape(list(tape))).hexdigest()}
+
+
 def load_oracle() -> dict:
     """mb_streams.json: set name -> {"window", "block_bytes", "streams":
     [{"len", "sha256"}, ...]} (one entry a block, in order)."""

@@ -29,6 +29,7 @@ import subprocess
 import threading
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from x3tpu_torch.config import MAX_MATCH_LEN, CodecCaps, X3Params
@@ -169,8 +170,10 @@ def _bind_encoder(lib: ctypes.CDLL, phases: bool = False) -> None:
     lib.x3_dict_layout.restype = None
     lib.x3_dict_layout.argtypes = [i] * 6 + [p]
     lib.x3_encode.restype = i
-    lib.x3_encode.argtypes = ([p, p, i, ll] + [i] * 12 + [ctypes.c_uint, i]
-                              + [p] * (8 if phases else 7))
+    lib.x3_fam_layout.restype = None
+    lib.x3_fam_layout.argtypes = [i] * 7 + [p]
+    lib.x3_encode.argtypes = ([p, p, i, ll] + [i] * 12 + [ctypes.c_uint]
+                              + [i] * 4 + [p] * (8 if phases else 7))
     lib.x3_encoder_info.restype = i
     lib.x3_encoder_info.argtypes = [p]
 
@@ -180,7 +183,7 @@ def _bind_decoder(lib: ctypes.CDLL, phases: bool = False) -> None:
     -DX3_DEC_PHASES, whose x3_decode takes one more pointer)."""
     i, p = ctypes.c_int, ctypes.c_void_p
     lib.x3_decode.restype = i
-    lib.x3_decode.argtypes = [p, p] + [i] * 10 + [p] * (8 if phases else 7)
+    lib.x3_decode.argtypes = [p, p] + [i] * 13 + [p] * (8 if phases else 7)
     lib.x3_decoder_info.restype = i
     lib.x3_decoder_info.argtypes = [p]
 
@@ -329,6 +332,69 @@ def seed_scratch(scratch: torch.Tensor, offsets: Dict[str, int], seeds,
         scratch[:, at : at + vals.numel()] = vals
 
 
+# a context family's planes, in x3_fam_layout's order (x3_core.cuh
+# fam_offsets; _fam_layout's names)
+FAM_PLANES = ("hub_tags", "hub_freqs", "hub_pair", "tags", "freqs", "pair",
+              "n", "promo", "big_tags", "big_freqs", "big_pair", "big_n")
+
+
+def fam_layout(caps: CodecCaps, lib: Optional[ctypes.CDLL] = None,
+               fn: str = "x3_fam_layout") -> Dict[str, Dict[str, int]]:
+    """Both context families' plane offsets in a lane's scratch, in int32
+    words (``"f0"``, ``"f1"``, each FAM_PLANES to its offset): from
+    :func:`layout`, or from ``lib``'s ``fn`` where given (K1's layout
+    query; the CPU tests pass the host build's ``x3h_fam_layout``)."""
+    if lib is None:
+        lay = layout(caps)
+        return {f: {k: lay[f][k] for k in FAM_PLANES} for f in ("f0", "f1")}
+    out = {}
+    for fam in (0, 1):
+        buf = (ctypes.c_longlong * len(FAM_PLANES))()
+        getattr(lib, fn)(
+            caps.dict_cap, caps.pair_cap, caps.ctx_items_cap,
+            caps.ctx0_items_cap, caps.ctx_small_cap, caps.ctx_promo_rows,
+            fam, buf)
+        out[f"f{fam}"] = dict(zip(FAM_PLANES, buf))
+    return out
+
+
+def warm_scratch(scratch: torch.Tensor, offsets: Dict[str, Dict[str, int]],
+                 warm, caps: CodecCaps) -> tuple:
+    """Write the warm state ``warm`` (``x3tpu_torch.warm.WarmArrays``) into
+    every lane of ``scratch`` (i32 [L, words], zeroed, the seeds it needs
+    written in) at the families' ``offsets`` (:func:`fam_layout`), as the
+    plain codec starts from it (``codec._init_shared``): both hubs' tags
+    and freqs, the ctx1 hub's pair ids, and the small-pool rows' tags,
+    freqs, pair ids and item counts; freqs raw, as both kernels' rows keep
+    them, and no row promoted.  Raises ValueError where ``caps`` cannot
+    hold the state (``warm.check_fits``, in ``codec.warm_tables``).
+    Returns the counts the kernels start from: (pair_n, ctx0 hub items,
+    ctx1 hub items)."""
+    w = codec.warm_tables(warm, caps)
+    at, vals = [], []   # word offsets and values, one index pass for all
+    for fam, items, hub, pool in (
+            ("f0", caps.ctx0_items_cap, w["h0"], w["c0"]),
+            ("f1", caps.ctx_items_cap, w["h1"], w["c1"])):
+        off = offsets[fam]
+        cs = min(caps.ctx_small_cap, items)   # x3_core.cuh make_fam CS
+        hub_slots = np.arange(hub["n"])
+        rows = pool["rows"]
+        slots = (rows[:, None] * cs + np.arange(pool["t"].shape[1])).ravel()
+        for plane, base, key, src in (
+                ("hub_tags", hub_slots, "t", hub),
+                ("hub_freqs", hub_slots, "f", hub),
+                ("hub_pair", hub_slots, "p", hub),
+                ("tags", slots, "t", pool), ("freqs", slots, "f", pool),
+                ("pair", slots, "p", pool), ("n", rows, "n", pool)):
+            if key in src:
+                at.append(off[plane] + base)
+                vals.append(np.asarray(src[key], np.int32).ravel())
+    dev = scratch.device
+    scratch[:, to_device(np.concatenate(at), dev)] = to_device(
+        np.concatenate(vals), dev)
+    return w["pair_n"], w["h0"]["n"], w["h1"]["n"]
+
+
 def kernel_layout(caps: CodecCaps, lib: Optional[ctypes.CDLL] = None):
     """A lane's scratch words and the dictionary planes' offsets as the
     kernel library ``lib`` (default: the main path's K1) has them
@@ -352,16 +418,35 @@ def _kernel_layout(lib: ctypes.CDLL, caps: CodecCaps):
     return words, offsets
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_fam_layout(lib: ctypes.CDLL, caps: CodecCaps):
+    offsets = fam_layout(caps, lib)
+    if offsets != fam_layout(caps):
+        raise RuntimeError(
+            f"the kernels' context family layout ({offsets}) is not "
+            f"driver.layout's ({fam_layout(caps)}) at {caps}")
+    return offsets
+
+
 def _seeded_scratch(lanes: int, caps: CodecCaps, dev, seeds,
-                    cumulative: bool, lib: Optional[ctypes.CDLL] = None):
-    """A wave's zeroed scratch with the seeds written in, and K; the
-    layout is the kernel library ``lib``'s (:func:`kernel_layout`)."""
-    k = codec.check_seeds(seeds, caps)
+                    cumulative: bool, lib: Optional[ctypes.CDLL] = None,
+                    warm=None):
+    """A wave's zeroed scratch with the seeds and the warm state written
+    in, K and the warm counts (:func:`warm_scratch`; zeros without
+    ``warm``); the layout is the kernel library ``lib``'s
+    (:func:`kernel_layout`, and for a warm start K1's family layout
+    query, which must equal :func:`layout`)."""
+    k = codec.check_seeds(seeds, caps, warm)
+    lib = lib or _load()["encoder"]
     words, offsets = kernel_layout(caps, lib)
     scratch = torch.zeros((lanes, words), dtype=torch.int32, device=dev)
     if k:
         seed_scratch(scratch, offsets, seeds, cumulative)
-    return scratch, k
+    counts = (0, 0, 0)
+    if warm is not None:
+        counts = warm_scratch(scratch, _kernel_fam_layout(lib, caps), warm,
+                              caps)
+    return scratch, k, counts
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
@@ -406,23 +491,25 @@ class Launch:
 
 
 def encode_blocks_cuda(text: torch.Tensor, tlen: torch.Tensor,
-                       params: X3Params, caps: CodecCaps, seeds=None):
+                       params: X3Params, caps: CodecCaps, seeds=None,
+                       warm=None):
     """Encode L blocks with kernel K1: ``text`` u8 [L, TB] from
     ``codec.pack_blocks`` and ``tlen`` i32 [L], both on one CUDA device,
     every lane from the dictionary ``seeds`` (strs u8 [K, 32], lens i32
-    [K]) where given.  Every lane's state lives in a zeroed scratch tensor
-    allocated here (with the seeds written in) and, for the planes
-    :func:`smem_plan` picks, in the CTA's shared memory, so new capacities
-    only reallocate: the kernel takes them at run time.  Launches on the
-    current stream and waits for the result (:func:`launch_encode` does
-    not wait)."""
-    return _encode_with(text, tlen, params, caps, seeds=seeds)
+    [K]) and the warm state ``warm`` (``x3tpu_torch.warm.WarmArrays``)
+    where given.  Every lane's state lives in a zeroed scratch tensor
+    allocated here (with the seeds and the warm tables written in) and,
+    for the planes :func:`smem_plan` picks, in the CTA's shared memory, so
+    new capacities only reallocate: the kernel takes them at run time.
+    Launches on the current stream and waits for the result
+    (:func:`launch_encode` does not wait)."""
+    return _encode_with(text, tlen, params, caps, seeds=seeds, warm=warm)
 
 
 def _encode_with(text: torch.Tensor, tlen: torch.Tensor, params: X3Params,
                  caps: CodecCaps, lib: Optional[ctypes.CDLL] = None,
                  phases: Optional[torch.Tensor] = None, seeds=None,
-                 smem_mask: Optional[int] = None):
+                 smem_mask: Optional[int] = None, warm=None):
     """:func:`encode_blocks_cuda` through ``lib`` (default: the main
     path's); ``phases`` (i64 [L, slots]) only with a library built with
     -DX3_PHASES (tools/k1_phases.py); ``smem_mask`` in place of
@@ -430,7 +517,7 @@ def _encode_with(text: torch.Tensor, tlen: torch.Tensor, params: X3Params,
     lanes = _check_encode(text, tlen, params, caps)
     if lanes and int(tlen.max()) > caps.block_bytes:
         raise ValueError("a block is larger than caps.block_bytes")
-    return launch_encode(text, tlen, params, caps, seeds, lib=lib,
+    return launch_encode(text, tlen, params, caps, seeds, warm, lib=lib,
                          phases=phases, smem_mask=smem_mask).result()
 
 
@@ -445,7 +532,7 @@ def _check_encode(text, tlen, params: X3Params, caps: CodecCaps) -> int:
 
 
 def launch_encode(text: torch.Tensor, tlen: torch.Tensor, params: X3Params,
-                  caps: CodecCaps, seeds=None,
+                  caps: CodecCaps, seeds=None, warm=None,
                   stream: Optional[torch.cuda.Stream] = None,
                   lib: Optional[ctypes.CDLL] = None,
                   phases: Optional[torch.Tensor] = None,
@@ -462,7 +549,8 @@ def launch_encode(text: torch.Tensor, tlen: torch.Tensor, params: X3Params,
     with torch.cuda.device(dev):
         stream = stream or torch.cuda.current_stream(dev)
         with torch.cuda.stream(stream):
-            scratch, k = _seeded_scratch(lanes, caps, dev, seeds, False, lib)
+            scratch, k, warm_n = _seeded_scratch(lanes, caps, dev, seeds,
+                                                 False, lib, warm)
             words = torch.zeros((lanes, caps.out_words), dtype=torch.int32,
                                 device=dev)
             byte_lens = torch.empty((lanes,), dtype=torch.int32, device=dev)
@@ -479,7 +567,7 @@ def launch_encode(text: torch.Tensor, tlen: torch.Tensor, params: X3Params,
                     caps.ctx_items_cap, caps.ctx0_items_cap,
                     caps.ctx_small_cap, caps.ctx_promo_rows, caps.out_words,
                     smem_plan(params, caps).mask if smem_mask is None
-                    else smem_mask, k, scratch.data_ptr(),
+                    else smem_mask, k, *warm_n, scratch.data_ptr(),
                     words.data_ptr(), byte_lens.data_ptr(),
                     counts.data_ptr(), sizes.data_ptr(), flags.data_ptr(),
                     stream.cuda_stream, *extra)
@@ -507,32 +595,34 @@ def _overflow(flags: torch.Tensor) -> codec.Overflow:
 
 
 def decode_blocks_cuda(words: torch.Tensor, byte_lens: torch.Tensor,
-                       caps: CodecCaps, seeds=None):
+                       caps: CodecCaps, seeds=None, warm=None):
     """Decode L streams with kernel K2: ``words`` i32 [L, IW] (the streams'
     little-endian u32 words, bit for bit) and ``byte_lens`` i32 [L], both
     on one CUDA device, every lane from the encoder's dictionary ``seeds``
-    where given.  Every lane's state lives in a zeroed scratch tensor
-    allocated here (with the seeds written in).  A corrupt stream (a
+    and warm state ``warm`` where given.  Every lane's state lives in a
+    zeroed scratch tensor allocated here (with the seeds and the warm
+    tables written in).  A corrupt stream (a
     symbol value past its model's total) and a lane still decoding after
     block_bytes + 1 events (a valid stream emits a byte with every event
     but EOF) raise ValueError; nothing hangs on a corrupt stream.
     Launches on the current stream and waits for the result
     (:func:`launch_decode` does not wait)."""
-    return _decode_with(words, byte_lens, caps, seeds=seeds)
+    return _decode_with(words, byte_lens, caps, seeds=seeds, warm=warm)
 
 
 def _decode_with(words: torch.Tensor, byte_lens: torch.Tensor,
                  caps: CodecCaps, lib: Optional[ctypes.CDLL] = None,
-                 phases: Optional[torch.Tensor] = None, seeds=None):
+                 phases: Optional[torch.Tensor] = None, seeds=None,
+                 warm=None):
     """:func:`decode_blocks_cuda` through ``lib`` (default: the main
     path's); ``phases`` (i64 [L, slots]) only with a library built with
     -DX3_DEC_PHASES (tools/k2_phases.py)."""
-    return launch_decode(words, byte_lens, caps, seeds, lib=lib,
+    return launch_decode(words, byte_lens, caps, seeds, warm, lib=lib,
                          phases=phases).result()
 
 
 def launch_decode(words: torch.Tensor, byte_lens: torch.Tensor,
-                  caps: CodecCaps, seeds=None,
+                  caps: CodecCaps, seeds=None, warm=None,
                   stream: Optional[torch.cuda.Stream] = None,
                   lib: Optional[ctypes.CDLL] = None,
                   phases: Optional[torch.Tensor] = None) -> Launch:
@@ -552,7 +642,8 @@ def launch_decode(words: torch.Tensor, byte_lens: torch.Tensor,
     with torch.cuda.device(dev):
         stream = stream or torch.cuda.current_stream(dev)
         with torch.cuda.stream(stream):
-            scratch, k = _seeded_scratch(lanes, caps, dev, seeds, True)
+            scratch, k, warm_n = _seeded_scratch(lanes, caps, dev, seeds,
+                                                 True, warm=warm)
             out = torch.zeros((lanes, caps.block_bytes), dtype=torch.uint8,
                               device=dev)
             out_lens = torch.empty((lanes,), dtype=torch.int32, device=dev)
@@ -565,7 +656,7 @@ def launch_decode(words: torch.Tensor, byte_lens: torch.Tensor,
                     words.data_ptr(), byte_lens.data_ptr(), lanes, iw,
                     caps.block_bytes, caps.dict_cap, caps.pair_cap,
                     caps.ctx_items_cap, caps.ctx0_items_cap,
-                    caps.ctx_small_cap, caps.ctx_promo_rows, k,
+                    caps.ctx_small_cap, caps.ctx_promo_rows, k, *warm_n,
                     scratch.data_ptr(), out.data_ptr(), out_lens.data_ptr(),
                     counts.data_ptr(), sizes.data_ptr(), flags.data_ptr(),
                     stream.cuda_stream, *extra)
