@@ -1,0 +1,8 @@
+"""decompress_p95_ms (ms): the 95th percentile of the decompress calls'
+latencies in the window, host clock."""
+
+from portbench.lib.host import p95_ms
+
+
+def read(run):
+    return p95_ms(run, "decompress")

@@ -1,0 +1,9 @@
+"""launches_per_call.decompress (launches/call): the program's kernel launches
+inside the decompress spans of the traced window, a call; PyTorch's own fill
+and copy kernels are not counted, retries and launch splits are."""
+
+from portbench.lib.device import launches_per_call
+
+
+def read(run):
+    return launches_per_call(run, "decompress")
