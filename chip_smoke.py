@@ -1390,8 +1390,10 @@ def main() -> int:
     phase("distributed", t0)
 
     k1_info = driver.encoder_info()
+    k1_warm_info = driver.encoder_info(warm=True)
     k1_plan = driver.smem_plan(params, caps)
-    print(f"K1: {k1_info}; shared memory plan {k1_plan.nbytes} B "
+    print(f"K1: {k1_info}, warm {k1_warm_info}; shared memory plan "
+          f"{k1_plan.nbytes} B "
           f"({sorted(k1_plan.offsets)})", flush=True)
     k2_info = driver.decoder_info()
     print(f"K2: {k2_info}; no dynamic shared memory (every plane in the "
@@ -1432,6 +1434,8 @@ def main() -> int:
         "smem_dynamic_bytes": k1_plan.nbytes,
         "registers": k1_info["registers"],
         "local_bytes": k1_info["local_bytes"],
+        "registers_warm": k1_warm_info["registers"],
+        "local_bytes_warm": k1_warm_info["local_bytes"],
         "events_slowest_lane": timing[32]["events_slowest_lane"],
         "ns_per_event": timing[32]["K1"] * 1e6
         / timing[32]["events_slowest_lane"],

@@ -78,6 +78,9 @@ def core():
     lib.x3h_row_search.restype = None
     lib.x3h_small_search.argtypes = [p, u, p]
     lib.x3h_small_search.restype = None
+    lib.x3h_probe_pair.argtypes = [p, p, i, i, i, ctypes.c_longlong, p, p,
+                                   i, p]
+    lib.x3h_probe_pair.restype = ctypes.c_longlong
     return lib
 
 
@@ -381,3 +384,92 @@ def test_core_char_and_length_search_match_small_decode(core, seed):
         assert out[:3].tolist() == out[3:6].tolist(), f"char, value {value}"
         if value <= int(f[:32].sum()) + 2:
             assert out[6:9].tolist() == out[9:].tolist(), f"length, {value}"
+
+
+# K1's hash index of the dictionary (x3_core.cuh) against the scan it
+# replaced (K2's probe), on the same entries.
+
+def _probe_dict(rng, text, n, seeds=0, dups=0):
+    """n distinct entries (strs u8 [n, 32], lens i32 [n]) of every length
+    1-32: about half the text's own substrings, many a prefix of the one
+    before, as the encoder inserts them (the row the 32 bytes of the text
+    from the entry's start), the rest random bytes; the first ``seeds``
+    zero-padded past their length, as a seeded start's, the last ``dups``
+    of them copies of earlier seeds."""
+    strs = np.zeros((n, 32), np.uint8)
+    lens = np.zeros(n, np.int32)
+    keys, e, tries = set(), 0, 0
+    while e < n:
+        length = e + 1 if e < 32 else int(rng.integers(1, 33))
+        if e % 4 == 3 and lens[e - 1] > 1 and not tries:
+            row, length = strs[e - 1], lens[e - 1] - 1
+        elif e % 2:
+            row = rng.integers(0, 4, 32, np.uint8)
+        else:
+            at = int(rng.integers(0, len(text) - 96))
+            row = text[at: at + 32]
+        key = row[:length].tobytes()
+        tries += 1
+        if key in keys:
+            continue
+        keys.add(key)
+        strs[e], lens[e] = row, length
+        e, tries = e + 1, 0
+    strs[:seeds][np.arange(32) >= lens[:seeds, None]] = 0
+    for e in range(seeds - dups, seeds):
+        src = int(rng.integers(0, seeds - dups))
+        strs[e], lens[e] = strs[src], lens[src]
+    return strs, lens
+
+
+# case: (entries, dict_cap, seeded entries, index slots (0: the caps'),
+# duplicate seeds, targets at the text's end)
+PROBE_CASES = {
+    "random": (3000, 4096, 0, 0, 0, False),
+    "dict_1024": (1000, 1024, 0, 0, 0, False),
+    "collide_wrap": (100, 4096, 0, 128, 0, False),
+    "seeded": (1500, 4096, 600, 0, 40, False),
+    "full": (4096, 4096, 0, 0, 0, False),
+    "padded_end": (2000, 4096, 0, 0, 0, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PROBE_CASES))
+def test_core_hash_probe_matches_scan(core, name):
+    """The index's probe and veto probe (x3_core.cuh hash_probe,
+    hash_probe_len), built as K1 builds it (a seeded start's entries at
+    once before the first event, the rest one an event), give the scan's
+    okmask, longest length and its tag, and the veto's probe that length,
+    at every target: with every length, with entries that prefix one
+    another, at the 16 KiB caps' dict_cap 1024, in a table small enough
+    that chains collide and wrap around its end, from seeds that hold a
+    string twice, with the dictionary full, and at the text's zero-padded
+    end."""
+    n, dict_cap, seeds, slots, dups, at_end = PROBE_CASES[name]
+    rng = np.random.default_rng(sorted(PROBE_CASES).index(name))
+    body = rng.integers(0, 4, 3000, np.uint8)
+    text = np.concatenate([body, np.zeros(64, np.uint8)])
+    strs, lens = _probe_dict(rng, text, n, seeds, dups)
+    if at_end:   # entries running into the padding
+        for e in range(32, 64):
+            k = int(rng.integers(1, 31))
+            strs[e] = text[len(body) - k: len(body) - k + 32]
+            lens[e] = k + int(rng.integers(1, 33 - k))
+        pos = np.arange(len(body) - 40, len(body), dtype=np.int32)
+    else:
+        pos = rng.integers(0, len(body), 400).astype(np.int32)
+    out = np.zeros((len(pos), 8), np.int32)
+    visits = core.x3h_probe_pair(
+        strs.ctypes.data, lens.ctypes.data, n, dict_cap, seeds, slots,
+        text.ctypes.data, pos.ctypes.data, len(pos), out.ctypes.data)
+    np.testing.assert_array_equal(out[:, 4:], out[:, :4])
+    assert (out[:, 1] > 0).mean() > 0.4 and (out[:, 3] > 0).mean() > 0.4
+    assert (np.bitwise_count(out[:, 0].astype(np.uint32)) > 1).any()
+    chain = visits / (2 * 32 * len(pos))   # two probes of 32 lookups a target
+    # the slots a lookup reads: near linear probing's mean for a miss at
+    # the table's load (keys hashed evenly), and more than two where the
+    # table is nearly full
+    load = n / (slots or driver.hash_slots(
+        dataclasses.replace(CAPS_16K, dict_cap=dict_cap)))
+    assert chain > 2 if name == "collide_wrap" else (
+        chain < 1.3 * (1 + 1 / (1 - load) ** 2) / 2), chain

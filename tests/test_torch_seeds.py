@@ -135,6 +135,29 @@ def test_core_seeded_matches_plain(core, placement):  # noqa: F811
     assert not dflags.any()
 
 
+def test_core_seeded_hash_index_matches_plain(core):  # noqa: F811
+    """The same seeded job at dict_cap 4096, the caps of a 64 KiB block,
+    whose K1 lanes index the seeds in a hash index four times the size
+    before the first event: the plain encoder's streams (which no capacity
+    without an overflow changes), counts and sizes, and K2's core decodes
+    them back."""
+    parts, _, seeds, caps = seeded_job()
+    caps = dataclasses.replace(caps, dict_cap=4096)
+    enc, streams, _ = plain_seeded()
+    words, lens, counts, sizes, flags = _encode(core, parts, PARAMS, caps,
+                                                "scratch", seeds)
+    assert [words[i].tobytes()[: lens[i]] for i in range(len(parts))] == (
+        streams)
+    np.testing.assert_array_equal(counts, enc[2].numpy())
+    np.testing.assert_allclose(sizes, enc[3].numpy(), rtol=1e-5, atol=1e-3)
+    assert not flags.any()
+    w, bl = pack_streams(streams)
+    out, out_lens, _, _, dflags = _decode(core, w, bl, caps, seeds)
+    for i, part in enumerate(parts):
+        assert out[i, : out_lens[i]].tobytes() == part
+    assert not dflags.any()
+
+
 @pytest.mark.parametrize("cumulative", [False, True])
 def test_wrapper_seeding_matches_core(core, cumulative):  # noqa: F811
     """driver.seed_scratch (the wrappers' one seeding pass, in PyTorch) at

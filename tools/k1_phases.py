@@ -2,20 +2,25 @@
 """Where one lane of kernel K1 spends its cycles: per-phase ``clock64()``
 counters, on one NVIDIA GPU.
 
-    python3 tools/k1_phases.py [TREE ...]
+    python3 tools/k1_phases.py [--blocks KIB[,KIB...]] [TREE ...]
 
-For each checkout TREE of the port (default: this one), in a process of
-its own that imports that tree's ``x3tpu_torch``: builds its
-``csrc/x3_encoder.cu`` once more with ``-DX3_PHASES`` (the main path's
-library never has the counters) into a library of its own, encodes 32
-blocks of 16 KiB of this checkout's ``chip_smoke.corpus`` (the same bytes
-for every tree) at ``caps_for_block(16 KiB)`` and ``X3Params()``, checks
-that the counted kernel gives the main path's words, and prints for the
-slowest lane the cycles per event of each phase, the leader thread's
-share, and the events; then one JSON line.  The leader reads the clock right after each of the
-CTA's barriers, so a phase's cycles are the whole CTA's time in it.  Cycles
-convert to time at the counted kernel's own rate (its CUDA-event time over
-the slowest lane's cycles).
+For each block size (default 16 and 1024 KiB) and each checkout TREE of
+the port (default: this one), in a process of its own that imports that
+tree's ``x3tpu_torch``: builds its ``csrc/x3_encoder.cu`` once more with
+``-DX3_PHASES`` (the main path's library never has the counters) into a
+library of its own, encodes 32 blocks (the same bytes for every tree and
+every checkout: ``tools/kernel_ab.py`` ``corpus_of``, 16 KiB blocks of
+``chip_smoke.corpus``, larger ones of the ``c1m-records`` cell's records) at
+``caps_for_block`` of the block and ``X3Params()``, checks that the
+counted kernel gives the main path's words, and prints for the slowest
+lane the cycles per event of each phase, the leader thread's share, and
+the events; where the tree's K1 has a hash index of its dictionary
+(dict_cap 4096 and up), the lookups it made and the slots they visited
+(their ratio: the mean chain length); then one JSON line.  The leader
+reads the clock right after each of the CTA's barriers, so a phase's
+cycles are the whole CTA's time in it.  Cycles convert to time at the
+counted kernel's own rate (its CUDA-event time over the slowest lane's
+cycles).
 """
 
 import ctypes
@@ -27,7 +32,6 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-BLOCK = 16 * 1024
 # x3_core.cuh PH_* slots, in order
 # (in the redesigned K1 slot 0 is the leader's whole pass 1: its warp's
 # ctx-row job, then the wait for the scan; "probe" and "window scan" are
@@ -38,7 +42,23 @@ SLOTS = ("total", "events", "hits", "veto probes", "literal bytes")
 # parts of the phases (x3_core.cuh PH_SUB_*)
 SUBS = ("pass-1 ctx rows (leader's warp)", "leader: mode choice",
         "leader: AC coding", "leader: table updates")
+# the hash index's counters (x3_core.cuh PH_HASH_*), in trees that have them
+HASH = ("hash lookups", "hash slots visited")
 LANES = 32
+BLOCKS_KIB = (16, 1024)
+
+
+def has_hash(tree: pathlib.Path) -> bool:
+    """Whether the tree's K1 counts its hash index (more phase slots)."""
+    core = tree / "x3tpu_torch" / "csrc" / "x3_core.cuh"
+    return "PH_HASH_LOOKUPS" in core.read_text()
+
+
+def corpus_bytes(block: int) -> bytes:
+    """LANES blocks of ``block`` bytes, as the module's docstring says."""
+    import kernel_ab
+
+    return kernel_ab.corpus_of(block, LANES * block)
 
 
 def build_counted(kernel="encoder", define="-DX3_PHASES", name="k1phases"):
@@ -90,8 +110,9 @@ def print_card():
           flush=True)
 
 
-def split_of(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
-    """Count one tree's K1 on the wave in ``data_path``."""
+def split_of(tree: pathlib.Path, data_path: pathlib.Path, block: int) -> dict:
+    """Count one tree's K1 on the wave of ``block``-byte blocks in
+    ``data_path``."""
     sys.path.insert(0, str(tree))
     import torch
     from x3tpu_torch import X3Params, codec
@@ -101,13 +122,15 @@ def split_of(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
     counted = build_counted()
     driver._bind_encoder(counted, phases=True)
     data = data_path.read_bytes()
-    lanes = len(data) // BLOCK
-    params, caps = X3Params(), runtime.caps_for_block(BLOCK)
-    blocks = [data[i: i + BLOCK] for i in range(0, len(data), BLOCK)]
+    lanes = len(data) // block
+    params, caps = X3Params(), runtime.caps_for_block(block)
+    blocks = [data[i: i + block] for i in range(0, len(data), block)]
     text, tlen = codec.pack_blocks(blocks, params, caps)
     text, tlen = torch.from_numpy(text).cuda(), torch.from_numpy(tlen).cuda()
-    ph = torch.zeros((lanes, len(PHASES) + len(SLOTS) + len(SUBS)),
-                     dtype=torch.int64, device="cuda")
+    hashed = has_hash(tree)
+    nslots = len(PHASES) + len(SLOTS) + len(SUBS) + (len(HASH) if hashed
+                                                        else 0)
+    ph = torch.zeros((lanes, nslots), dtype=torch.int64, device="cuda")
 
     def plain_call():
         return driver.encode_blocks_cuda(text, tlen, params, caps)
@@ -129,7 +152,8 @@ def split_of(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
     row = arr[slow]
     total, events = int(row[n]), int(row[n + 1])
     ns_per_cycle = counted_ms * 1e6 / total
-    print(f"{tree}: {lanes} x 16 KiB: K1 {plain_ms:.3f} ms, counted "
+    print(f"{tree}: {lanes} x {block // 1024} KiB, dict_cap "
+          f"{caps.dict_cap}: K1 {plain_ms:.3f} ms, counted "
           f"{counted_ms:.3f} ms; slowest lane {slow}: {total} cycles, {events} events "
           f"({int(row[n + 2])} hits, {int(row[n + 4])} literal bytes, "
           f"{int(row[n + 3])} veto probes); {ns_per_cycle:.4f} ns a cycle",
@@ -147,9 +171,22 @@ def split_of(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
     for k, name in enumerate(SUBS):
         subs[name] = row[n + len(SLOTS) + k] / events
         print(f"    {name:32s} {subs[name]:10.1f} cycles/event", flush=True)
+    hash_counts = {}
+    if hashed:
+        at = n + len(SLOTS) + len(SUBS)
+        lookups, visits = arr[:, at].sum(), arr[:, at + 1].sum()
+        hash_counts = {
+            "lookups_per_event": lookups / arr[:, n + 1].sum(),
+            "slots_per_lookup": visits / max(lookups, 1),
+            "slowest_lane_lookups": int(row[at]),
+            "slowest_lane_slots": int(row[at + 1])}
+        print(f"  hash index (all lanes): {hash_counts['lookups_per_event']:.2f}"
+              f" lookups an event, {hash_counts['slots_per_lookup']:.3f} "
+              f"slots a lookup (a lookup: one key, one lane)", flush=True)
     mean = (arr[:, :n].sum(0) / arr[:, n + 1].sum()).tolist()
     return {
-        "tree": str(tree), "lanes": lanes, "K1_ms": plain_ms,
+        "tree": str(tree), "block_bytes": block,
+        "dict_cap": caps.dict_cap, "lanes": lanes, "K1_ms": plain_ms,
         "counted_ms": counted_ms,
         "slowest_lane": slow, "cycles": total, "events": events,
         "hits": int(row[n + 2]), "veto_probes": int(row[n + 3]),
@@ -159,14 +196,21 @@ def split_of(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
         "leader_share": row[PHASES.index("leader chain")] / total,
         "split": split, "parts": subs,
         "mean_cycles_per_event_all_lanes": dict(zip(PHASES, mean)),
+        "hash_index": hash_counts,
         "device": torch.cuda.get_device_name(0)}
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["--one"]:
-        print(json.dumps(split_of(pathlib.Path(sys.argv[2]).resolve(),
-                                  pathlib.Path(sys.argv[3]))), flush=True)
+    args = sys.argv[1:]
+    if args[:1] == ["--one"]:
+        print(json.dumps(split_of(pathlib.Path(args[1]).resolve(),
+                                  pathlib.Path(args[2]), int(args[3]))),
+              flush=True)
         return 0
+    blocks = BLOCKS_KIB
+    if args[:1] == ["--blocks"]:
+        blocks = tuple(int(b) for b in args[1].split(","))
+        args = args[2:]
     import torch
 
     print_card()
@@ -175,14 +219,13 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    import chip_smoke
-
-    data_path = ROOT / "build" / "k1_phases_data.bin"
-    data_path.parent.mkdir(parents=True, exist_ok=True)
-    data_path.write_bytes(chip_smoke.corpus(LANES * BLOCK))
-    for tree in sys.argv[1:] or [str(ROOT)]:
-        subprocess.run([sys.executable, __file__, "--one", tree,
-                        str(data_path)], check=True)
+    for kib in blocks:
+        data_path = ROOT / "build" / f"k1_phases_data_{kib}k.bin"
+        data_path.parent.mkdir(parents=True, exist_ok=True)
+        data_path.write_bytes(corpus_bytes(kib * 1024))
+        for tree in args or [str(ROOT)]:
+            subprocess.run([sys.executable, __file__, "--one", tree,
+                            str(data_path), str(kib * 1024)], check=True)
     return 0
 
 

@@ -2,14 +2,17 @@
 """Time the CUDA kernels of several checkouts of the port on one GPU, in
 turns, on the same input: the A/B of a kernel change.
 
-    python3 tools/kernel_ab.py OLD_TREE NEW_TREE [...]
+    python3 tools/kernel_ab.py [--block KIB] OLD_TREE NEW_TREE [...]
 
 Each tree is the root of a checkout (unpack the parent with ``git archive
 <commit> | tar -x -C <dir>`` into a directory ``.gitignore`` lists).  The
 trees run in the order given and then in reverse (old, new, new, old for
 two trees), each in a process of its own that imports that tree's
 ``x3tpu_torch``: K1 and K2 at 32 and at 128 lanes of 16 KiB of
-``chip_smoke.corpus``, median of 5 wrapper calls timed with CUDA events,
+``chip_smoke.corpus`` (``--block``: blocks of KIB KiB at their
+``caps_for_block``, above 16 KiB of the ``c1m-records`` cell's records
+at seed 0 (:func:`corpus_of`), and 32 lanes alone above 64 KiB), median
+of 5 wrapper calls timed with CUDA events,
 a hash of K1's words and lengths and one of K2's bytes, lengths, counts,
 sizes and flags (equal across trees whose outputs are).  One JSON line
 per run; a run that takes more than RUN_TIMEOUT seconds fails.
@@ -118,7 +121,32 @@ def plan_ab(labels) -> None:
         print(json.dumps(row), flush=True)
 
 
-def time_tree(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
+def corpus_of(block: int, nbytes: int) -> bytes:
+    """``nbytes`` of input for ``block``-byte blocks, the same in every
+    checkout: ``chip_smoke.corpus`` up to 16 KiB, else the ``records``
+    traffic of the benchmark's ``c1m-records`` cell at seed 0
+    (``portbench/traffic/records.json``, made by its recipe, nothing read
+    from the checkout's files)."""
+    root = pathlib.Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root))
+    if block <= BLOCK:
+        import chip_smoke
+
+        return chip_smoke.corpus(nbytes)
+    from portbench.lib import generate
+
+    traffic = json.loads(
+        (root / "portbench" / "traffic" / "records.json").read_text())
+    return generate.generate(traffic, nbytes, 0)
+
+
+def lanes_of(block: int) -> tuple:
+    """The wave sizes timed at ``block``-byte blocks."""
+    return LANES if block <= 64 * 1024 else LANES[:1]
+
+
+def time_tree(tree: pathlib.Path, data_path: pathlib.Path,
+              block: int = BLOCK) -> dict:
     sys.path.insert(0, str(tree))
     import torch
     from x3tpu_torch import X3Params, codec
@@ -142,10 +170,11 @@ def time_tree(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
         return statistics.median(runs), runs
 
     data = data_path.read_bytes()
-    params, caps = X3Params(), runtime.caps_for_block(BLOCK)
-    out = {"tree": str(tree)}
-    for lanes in LANES:
-        blocks = [data[i: i + BLOCK] for i in range(0, lanes * BLOCK, BLOCK)]
+    params, caps = X3Params(), runtime.caps_for_block(block)
+    out = {"tree": str(tree), "block_bytes": block,
+           "dict_cap": caps.dict_cap}
+    for lanes in lanes_of(block):
+        blocks = [data[i: i + block] for i in range(0, lanes * block, block)]
         text, tlen = codec.pack_blocks(blocks, params, caps)
         text = torch.from_numpy(text).cuda()
         tlen = torch.from_numpy(tlen).cuda()
@@ -156,6 +185,8 @@ def time_tree(tree: pathlib.Path, data_path: pathlib.Path) -> dict:
             + enc[1].cpu().numpy().tobytes()).hexdigest()[:16]
         out[f"K1_ms_{lanes}"], out[f"K1_runs_{lanes}"] = median_ms(
             lambda: driver.encode_blocks_cuda(text, tlen, params, caps))
+        out[f"K1_ns_per_event_{lanes}"] = (
+            out[f"K1_ms_{lanes}"] * 1e6 / int(enc[2].sum(1).max()))
         w = enc[0]
         words = torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
         lens = enc[1].to(torch.int32)
@@ -206,21 +237,24 @@ def main() -> int:
         return 0
     if sys.argv[1] == "--one":
         print(json.dumps(time_tree(pathlib.Path(sys.argv[2]).resolve(),
-                                   pathlib.Path(sys.argv[3]))), flush=True)
+                                   pathlib.Path(sys.argv[3]),
+                                   int(sys.argv[4]))), flush=True)
         return 0
     root = pathlib.Path(__file__).resolve().parent.parent
     sys.path.insert(0, str(root))
-    import chip_smoke
-
+    trees, block = sys.argv[1:], BLOCK
+    if trees[0] == "--block":
+        block, trees = int(trees[1]) * 1024, trees[2:]
     print_card()
-    data_path = root / "build" / "kernel_ab_data.bin"
+    data = corpus_of(block, max(lanes_of(block)) * block)
+    data_path = root / "build" / f"kernel_ab_data_{block}.bin"
     data_path.parent.mkdir(parents=True, exist_ok=True)
-    data_path.write_bytes(chip_smoke.corpus(max(LANES) * BLOCK))
-    trees = sys.argv[1:]
+    data_path.write_bytes(data)
     order = trees + trees[::-1]
     for tree in order:
         subprocess.run([sys.executable, __file__, "--one", tree,
-                        str(data_path)], check=True, timeout=RUN_TIMEOUT)
+                        str(data_path), str(block)], check=True,
+                       timeout=RUN_TIMEOUT)
     return 0
 
 

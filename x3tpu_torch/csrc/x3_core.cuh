@@ -17,14 +17,16 @@
 // same code.
 //
 // Work split (encoder, one event).  Pass 1 ends in one barrier: every
-// warp but the first takes the previous event's rank update, the
-// dictionary probe and the window scan (word-wide compares, a byte compare
-// of four positions to skip the ones whose first byte differs, a
-// histogram per warp); the first warp applies the previous hit's context
-// updates and resolves this event's ctx0 and ctx1 rows; single warps
-// take the char and length models' prefix sums and the literal bytes'
-// duplicate corrections.  Every warp then derives the sweep from the
-// histograms itself (a vetoed candidate costs one probe and barrier).
+// warp takes a share of the previous event's rank update; the second warp
+// indexes the last new dictionary entry and probes the dictionary's hash
+// index (a lookup a lane); every other warp but the first takes the
+// window scan (word-wide compares, a byte compare of four positions to
+// skip the ones whose first byte differs, a histogram per warp); the
+// first warp applies the previous hit's context updates and resolves this
+// event's ctx0 and ctx1 rows; single warps take the char and length
+// models' prefix sums and the literal bytes' duplicate corrections.  Every
+// warp then derives the sweep from the histograms itself (a vetoed
+// candidate costs each warp its own lookups, and no barrier).
 // Pass 2 (hits) ends in one barrier: the ctx0 row, the ctx1 row and the
 // index model are searched and summed by separate warps at once, each
 // with its mode's f32 probability.  The leader thread then picks the mode,
@@ -333,7 +335,8 @@ struct CodeQueue {
 };
 
 // Per-event values handed from the leader or the whole CTA to all threads
-// (K1).  t32, esym, flen and evbits are unused, as in Lane.
+// (K1).  esym and evbits are unused, as in Lane; t32 and flen are an
+// inserted entry's key, for the hash index's warp.
 struct Shared {
   alignas(16) uint8_t t32[MML];
   int op, op_n, op_r, op_tag;  // dictionary rank update for this event
@@ -574,6 +577,15 @@ X3_HD uint32_t load_word(const uint8_t* p) {
   uint32_t v;
   memcpy(&v, p, 4);
   return v;
+#endif
+}
+
+// Store v as the little-endian word at p, which is 4-byte aligned.
+X3_HD void store_word(uint8_t* p, uint32_t v) {
+#ifdef __CUDA_ARCH__
+  *(uint32_t*)p = v;
+#else
+  memcpy(p, &v, 4);
 #endif
 }
 
@@ -852,18 +864,170 @@ X3_HD Probe probe(const P& par, const uint8_t* strs, const int32_t* lens, int n,
   return make_probe(mask, best);
 }
 
-// Length of the longest entry that prefixes the text at pos (one round).
+// ---------------------------------------------------------------------------
+// K1's hash index of the live dictionary entries: a probe is 32 lookups,
+// one a candidate length, in place of probe_part's scan over every live
+// entry (K2's probe), and gives its answer exactly.  The key of an entry is (its length L, its
+// first L bytes).  The index is a plane of hash_slots(D) u32 slots after
+// the lane's Layout::words (K1 only; K2's scratch has none), zeroed with
+// the rest; a slot is 0 (empty) or the key hash's high bits over tag + 1
+// in the low tag bits (HashIx::tmask), so that most misses read no string.
+// Linear probing from the hash's low bits; a lookup walks its chain to the
+// first empty slot and keeps the largest tag whose length and bytes match,
+// so a seeded dictionary that holds a string twice answers as the scan.
+// ---------------------------------------------------------------------------
+
+// The largest dictionary the index takes: a slot keeps at least 7 bits of
+// the hash above the tag.
+constexpr int HASH_DICT_MAX = 1 << 24;
+
+// Slots of the index at dictionary size D: the least power of two >= 2D.
+X3_HD int64_t hash_slots(int D) {
+  int64_t h = 1;
+  while (h < 2 * (int64_t)D) h <<= 1;
+  return h;
+}
+
+struct HashIx {
+  uint32_t* slot;
+  uint32_t hmask;  // slots - 1
+  uint32_t tmask;  // a slot's tag + 1 bits (those of D)
+};
+
+// The index of `slots` slots (a power of two above the entries) at plane.
+X3_HD HashIx hash_index(int32_t* plane, int64_t slots, int D) {
+  HashIx x;
+  x.slot = (uint32_t*)plane;
+  x.hmask = (uint32_t)(slots - 1);
+  x.tmask = (1u << (32 - clz32((uint32_t)D))) - 1u;
+  return x;
+}
+
+// A key's words w(0..7), and whether the len-byte entry s is the key
+// (match_len(s, T, len) >= len): the target T in registers, against whose
+// words an entry's are loaded at once; or the text at pos (a veto's
+// target), read and compared word by word, so that a veto keeps no
+// registers for them (K1 spills with eight more live).
+struct WordsOf {
+  const uint32_t* T;
+  X3_HD uint32_t operator()(int k) const { return T[k]; }
+  X3_HD bool is_prefix(const uint8_t* s, int len) const {
+    uint32_t d = 0;
+#pragma unroll
+    for (int k = 0; k < MML / 4; ++k)
+      if (4 * k < len)
+        d |= (load_word(s + 4 * k) ^ T[k]) & byte_span(0, imin(len - 4 * k, 4));
+    return d == 0;
+  }
+};
+struct WordsAt {
+  const uint8_t* txt;
+  int pos;
+  X3_HD uint32_t operator()(int k) const { return text_word(txt, pos + 4 * k); }
+  X3_HD bool is_prefix(const uint8_t* s, int len) const {
+    return match_len_at(s, txt, pos, len) >= len;
+  }
+};
+// The words of a 32-byte row (an entry's, or a new entry's key in Shared).
+struct WordsRow {
+  const uint8_t* row;
+  X3_HD uint32_t operator()(int k) const { return load_word(row + 4 * k); }
+};
+
+// Hash of the key (len, the first len bytes of the words w(0..7)).
+template <class W>
+X3_HD uint32_t key_hash(const W& w, int len) {
+  uint32_t h = 0x9E3779B9u * (uint32_t)len;
+#pragma unroll
+  for (int k = 0; k < MML / 4; ++k) {
+    h = (h ^ (w(k) & byte_span(0, iclamp(len - 4 * k, 0, 4)))) * 0x85EBCA6Bu;
+    h ^= h >> 15;
+  }
+  h *= 0xC2B2AE35u;
+  return h ^ (h >> 16);
+}
+
+// Tag + 1 of the largest tag whose entry is the key (len, w), 0 if none;
+// visits counts the slots read.
+template <class W>
+X3_HD int hash_find(const HashIx& x, const uint8_t* strs, const int32_t* lens,
+                    const W& w, int len, int& visits) {
+  const uint32_t h = key_hash(w, len);
+  int found = 0;
+  for (uint32_t i = h & x.hmask;; i = (i + 1) & x.hmask) {
+    const uint32_t s = x.slot[i];
+    ++visits;
+    if (!s) return found;
+    const int t1 = (int)(s & x.tmask);
+    if (((s ^ h) & ~x.tmask) == 0 && t1 > found && lens[t1 - 1] == len &&
+        w.is_prefix(strs + (int64_t)(t1 - 1) * MML, len))
+      found = t1;
+  }
+}
+
+// Index tag, whose key hashes to h, at the first empty slot of its chain
+// (one thread).
+X3_HD void hash_insert(const HashIx& x, uint32_t h, int tag) {
+  uint32_t i = h & x.hmask;
+  while (x.slot[i]) i = (i + 1) & x.hmask;
+  x.slot[i] = (h & ~x.tmask) | (uint32_t)(tag + 1);
+}
+
+// Put v into the empty slot p (false: p is taken).
+X3_HD bool hash_claim(uint32_t* p, uint32_t v) {
+#ifdef __CUDA_ARCH__
+  return atomicCAS(p, 0u, v) == 0u;
+#else
+  if (*p) return false;
+  *p = v;
+  return true;
+#endif
+}
+
+// Index the first n entries (a seeded start's), all threads at once (one
+// thread's loop of inserts made K1 spill); an entry no target can match
+// (length outside 1..32) stays out.  A chain's order is then the
+// threads', which no lookup's answer depends on.
 template <class P>
-X3_HD int probe_len(const P& par, const uint8_t* strs, const int32_t* lens,
-                    int n, const uint8_t* txt, int pos) {
-  int best = 0;
+X3_HD void hash_seed(const P& par, const HashIx& x, const uint8_t* strs,
+                     const int32_t* lens, int n) {
   for (int e = par.tid(); e < n; e += par.nthr()) {
     const int len = lens[e];
-    if (len > best &&
-        match_len_at(strs + (int64_t)e * MML, txt, pos, len) >= len)
-      best = len;
+    if (len <= 0 || len > MML) continue;
+    const uint32_t h = key_hash(WordsRow{strs + (int64_t)e * MML}, len);
+    const uint32_t v = (h & ~x.tmask) | (uint32_t)(e + 1);
+    for (uint32_t i = h & x.hmask; !hash_claim(x.slot + i, v);
+         i = (i + 1) & x.hmask) {
+    }
   }
-  return (int)par.reduce((uint64_t)best, OpMax());
+}
+
+// Warp-collective: probe_part's mask and best over the whole dictionary,
+// from the index (lane L-1 looks up the key of length L).
+template <class P>
+X3_HD void hash_probe(const P& par, const HashIx& x, const uint8_t* strs,
+                      const int32_t* lens, const uint32_t* T, uint64_t& mask,
+                      uint64_t& best, int& visits) {
+  for (int len = par.lane() + 1; len <= MML; len += P::WS) {
+    const int t1 = hash_find(x, strs, lens, WordsOf{T}, len, visits);
+    if (t1) {
+      mask |= 1u << (len - 1);
+      const uint64_t key = ((uint64_t)len << 32) | (uint32_t)(t1 - 1);
+      if (key > best) best = key;
+    }
+  }
+}
+
+// Warp-collective: the length of the longest entry that prefixes the
+// text at pos, from the index, on this warp alone (every lane gets it).
+template <class P>
+X3_HD int hash_probe_len(const P& par, const HashIx& x, const uint8_t* strs,
+                         const int32_t* lens, const uint8_t* txt, int pos,
+                         int& visits) {
+  int best = 0;
+  for (int len = par.lane() + 1; len <= MML; len += P::WS)
+    if (hash_find(x, strs, lens, WordsAt{txt, pos}, len, visits)) best = len;
+  return par.wmax(best);
 }
 
 // This thread's share of the window scan (thread tid of nthr; none when
@@ -950,12 +1114,13 @@ X3_HD int group_scan32(const P& par, const int* in, int* pre) {
 // The chosen new-fragment length >= 1 (find_best_match, backend.c:56-100;
 // x3tpu/ops/match.py best_match_sweep, all three branches), from the
 // warps' scan counts in sh.wcnt.  Every warp computes it (lane i holds
-// candidate length i+1), so only the vetoes take a barrier.  `probes`
-// counts the offsets probed for vetoes.
+// candidate length i+1), and a veto's probe (hash_probe_len) is each
+// warp's own, so the sweep takes no barrier.  `probes` counts the offsets
+// probed for vetoes, `visits` the index's slots their lookups read.
 template <class P>
 X3_HD int sweep(const P& par, const Params& prm, const Shared& sh,
-                const uint8_t* strs, const int32_t* lens, int n,
-                const uint8_t* txt, int p, int& probes) {
+                const HashIx& hx, const uint8_t* strs, const int32_t* lens,
+                const uint8_t* txt, int p, int& probes, int& visits) {
   if (prm.T < 1) return 1;
   constexpr int K = MML / P::WS;
   int key[K];  // level * 32 + i of candidate i = lane * K + k
@@ -984,7 +1149,7 @@ X3_HD int sweep(const P& par, const Params& prm, const Shared& sh,
     uint32_t veto = 0;
     int pm = -(1 << 20);
     for (int i = 1; i < MML; ++i) {
-      const int vl = probe_len(par, strs, lens, n, txt, p + i);
+      const int vl = hash_probe_len(par, hx, strs, lens, txt, p + i, visits);
       ++probes;
       pm = imax(pm, vl - i);
       const bool v1 = prm.f1 > 0 && i >= 2 && vl > 0 && vl * prm.f1 > i + 1;
@@ -1002,7 +1167,7 @@ X3_HD int sweep(const P& par, const Params& prm, const Shared& sh,
     if (bk < 0) return 1;  // out of candidates (backend.c:99)
     const int bi = bk & (MML - 1);
     if (bi < 2) return bi + 1;
-    const int dl = probe_len(par, strs, lens, n, txt, p + bi);
+    const int dl = hash_probe_len(par, hx, strs, lens, txt, p + bi, visits);
     ++probes;
     if (!(dl > 0 && dl * prm.f1 > bi + 1)) return bi + 1;
     rem &= ~(1u << bi);
@@ -1272,17 +1437,21 @@ struct LaneIO {
 // (tools/k1_phases.py builds such a library; the main path's never has
 // them).  The leader thread reads clock64() at each phase boundary.  Pass
 // 1 is one barrier: the leader's warp works on the ctx rows while the
-// other warps probe and scan, so PH_PROBE and PH_SCAN are the first
-// scanning thread's (thread 32's) share, PH_RANKS the leader's share of
-// the rank update, and PH_PASS1 the rest of pass 1 on the leader: its ctx
-// rows (PH_SUB_CTXROWS), then the wait for the scan.  Slots: the phases,
+// other warps probe and scan, so PH_PROBE is the index's warp's share
+// (thread 32's: the insert and the lookups), PH_SCAN the first scanning
+// thread's (thread 64's), PH_RANKS the leader's share of the rank update,
+// and PH_PASS1 the rest of pass 1 on the leader: its ctx rows
+// (PH_SUB_CTXROWS), then the wait for the others.  Slots: the phases,
 // then the lane's cycles and event counts.
 enum {
   PH_PASS1, PH_PROBE, PH_SCAN, PH_SWEEP, PH_HIT, PH_LEADER, PH_RANKS,
   PH_TOTAL = 7, PH_EVENTS, PH_HITS, PH_VETO_PROBES, PH_LIT_BYTES,
   // parts of the phases above: the leader's own ctx-row job in pass 1, and
   // the leader chain's mode choice, coding and table updates
-  PH_SUB_CTXROWS, PH_SUB_MODE, PH_SUB_CODE, PH_SUB_UPDATE, PH_SLOTS
+  PH_SUB_CTXROWS, PH_SUB_MODE, PH_SUB_CODE, PH_SUB_UPDATE,
+  // the hash index's warp: its lookups (one a key: 32 a probe, the event's
+  // and each veto's) and the slots they read (their ratio: the mean chain)
+  PH_HASH_LOOKUPS, PH_HASH_VISITS, PH_SLOTS
 };
 #if defined(X3_PHASES) && defined(__CUDA_ARCH__)
 #define X3_PHASE_BY(k, owner)                         \
@@ -1298,6 +1467,12 @@ enum {
   do { if (par.tid() == (owner)) ph_t = clock64(); } while (0)
 #define X3_COUNT(k, n) \
   do { if (par.leader()) ph[k] += (n); } while (0)
+// warp-collective: the sum of n over the warp, counted by its lane 0
+#define X3_COUNT_WARP(k, n)                           \
+  do {                                                \
+    const int n_ = par.wsum(n);                       \
+    if (par.lane() == 0) ph[k] += n_;                 \
+  } while (0)
 // a part of the current phase: the cycles since the last X3_PHASE or
 // X3_SUB, counted in slot k as well
 #define X3_SUB(k)                                     \
@@ -1314,6 +1489,7 @@ enum {
 #define X3_CLOCK(owner) do {} while (0)
 #define X3_PHASE(k) do {} while (0)
 #define X3_COUNT(k, n) do {} while (0)
+#define X3_COUNT_WARP(k, n) do {} while (0)
 #endif
 
 // Copy the text row into shared memory and zero the other planes there;
@@ -1369,7 +1545,8 @@ X3_HD void init_smem(const P& par, const Layout& L, const LaneIO& io) {
 // One lane, start to finish.  kWarm: the lane starts from a warm start's
 // tables and io.warm's counts; an unwarmed launch runs the instantiation
 // without them, the code K1 ran before warm start (as decode_lane's, read
-// from arguments they measured slower there, x3_dec_core.cuh).
+// from arguments they measured slower there, x3_dec_core.cuh).  The
+// dictionary's hash index is the plane after the scratch's Layout::words.
 template <bool kWarm = false, class P>
 X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
                        const Layout& L, const LaneIO& io, Lane& R, Shared& sh) {
@@ -1377,17 +1554,21 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
   const uint8_t* txt = pl.text;
   const int cap = cp.out_words;
   // warps with jobs of their own (all warp 0 on the host): pass 1 the ctx
-  // rows and the models' prefixes, pass 2 the ctx0 row, the ctx1 row and
-  // the index model
+  // rows, the index's insert and lookups and the models' prefixes, pass 2
+  // the ctx0 row, the ctx1 row and the index model
   const int nw = par.nwarps();
   const int w_ctx0 = 0, w_ctx1 = 1 % nw, w_lit = 2 % nw, w_ix = 2 % nw;
-  // the probe and the scan: every warp but the ctx0 row's
-  const int s0 = nw > 1 ? P::WS : 0;
+  const int w_hash = 1 % nw;
+  // the window scan: every warp but the ctx0 row's and the index's
+  const int s0 = P::WS * imin(nw - 1, 2);
   const int stid = par.tid() - s0, snthr = par.nthr() - s0;
+  const HashIx hx = hash_index(io.scr + L.words, hash_slots(L.D), L.D);
+  int visits = 0;  // slots read by this thread's lookups (X3_PHASES)
 #if defined(X3_PHASES) && defined(__CUDA_ARCH__)
   long long ph[PH_SLOTS] = {0};
   const long long ph_start = clock64();
   long long ph_t = ph_start, ph_s = ph_start;
+  const int p0 = P::WS * w_hash;  // PH_PROBE's thread
 #endif
 
   // the AC coder: on the device the coder warp, fed through the queue
@@ -1426,6 +1607,11 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
   }
   for (int i = par.tid(); i < 256; i += par.nthr()) R.ch[i] = 1;
   par.sync();
+  if (io.seeds > 0) {
+    // a seeded start's entries, indexed before the first event
+    hash_seed(par, hx, pl.strs, pl.lens, io.seeds);
+    par.sync();
+  }
 
   // every event consumes at least one byte, so tlen events always suffice
   for (int steps = 0; R.p < R.tlen; ++steps) {
@@ -1441,6 +1627,7 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
     update_ranks(par, sh, pl.rank_of);
     X3_PHASE(PH_RANKS);
     X3_CLOCK(s0);
+    X3_CLOCK(p0);
     if (par.warp() == w_ctx0) {
       if (par.leader()) {
         int id = -1;  // this event's ctx0 id, where the update tells it
@@ -1491,8 +1678,16 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
     uint32_t T[MML / 4];
     target_words(txt, p, T);
     uint64_t mask = 0, best = 0;
-    probe_part(par, stid, snthr, pl.strs, pl.lens, R.dn, T, mask, best);
-    X3_PHASE_BY(PH_PROBE, s0);
+    visits = 0;
+    if (par.warp() == w_hash) {
+      // the last event's new entry (its key in sh.t32, sh.flen) before
+      // this event's lookups, which must see it
+      if (sh.op == OP_INSERT && par.lane() == 0)
+        hash_insert(hx, key_hash(WordsRow{sh.t32}, sh.flen), sh.op_n);
+      par.syncwarp();
+      hash_probe(par, hx, pl.strs, pl.lens, T, mask, best, visits);
+    }
+    X3_PHASE_BY(PH_PROBE, p0);
     window_counts(par, stid, snthr, txt, p, prm.W, T, sh.wcnt[par.warp()]);
     X3_PHASE_BY(PH_SCAN, s0);
     if (par.warp() == w_lit) {
@@ -1524,7 +1719,8 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
 
     // (2) threshold sweep (x3.c:383) and selection (x3.c:381-383)
     int probes = 0;
-    const int fbm = sweep(par, prm, sh, pl.strs, pl.lens, R.dn, txt, p, probes);
+    const int fbm =
+        sweep(par, prm, sh, hx, pl.strs, pl.lens, txt, p, probes, visits);
     int nl = pr.len;
     if (prm.nl) {
       const int lut[4] = {1, 4, 6, 8};
@@ -1535,6 +1731,10 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
     const int tag = pr.slot;
     X3_PHASE(PH_SWEEP);
     X3_COUNT(PH_VETO_PROBES, probes);
+    if (par.warp() == w_hash) {
+      X3_COUNT_WARP(PH_HASH_VISITS, visits);
+      X3_COUNT_WARP(PH_HASH_LOOKUPS, 1 + probes);
+    }
 
     // (3) pass 2, a hit's contexts and index model (x3.c:139-160), each on
     // a warp of its own, with its mode's probability (x3.c:150-172); one
@@ -1642,6 +1842,9 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
           uint32_t* s = (uint32_t*)(pl.strs + (int64_t)R.dn * MML);
           for (int k = 0; k < MML / 4; ++k) s[k] = T[k];
           pl.lens[R.dn] = mlen;
+          // the key, for the index's warp in the next pass 1
+          for (int k = 0; k < MML / 4; ++k) store_word(sh.t32 + 4 * k, T[k]);
+          sh.flen = mlen;
           sh.op = OP_INSERT;
           R.dn += 1;
         } else {
@@ -1694,14 +1897,18 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
 #if defined(X3_PHASES) && defined(__CUDA_ARCH__)
     ph[PH_TOTAL] = clock64() - ph_start;
     for (int k = 0; k < PH_SLOTS; ++k)
-      if (s0 == 0 || (k != PH_PROBE && k != PH_SCAN)) io.phases[k] = ph[k];
+      if (s0 == 0 || (k != PH_PROBE && k != PH_SCAN && k != PH_HASH_LOOKUPS &&
+                      k != PH_HASH_VISITS))
+        io.phases[k] = ph[k];
 #endif
   }
 #if defined(X3_PHASES) && defined(__CUDA_ARCH__)
-  if (s0 && par.tid() == s0) {
+  if (s0 && par.tid() == p0) {
     io.phases[PH_PROBE] = ph[PH_PROBE];
-    io.phases[PH_SCAN] = ph[PH_SCAN];
+    io.phases[PH_HASH_LOOKUPS] = ph[PH_HASH_LOOKUPS];
+    io.phases[PH_HASH_VISITS] = ph[PH_HASH_VISITS];
   }
+  if (s0 && par.tid() == s0) io.phases[PH_SCAN] = ph[PH_SCAN];
 #endif
 }
 

@@ -115,6 +115,45 @@ void x3h_window_counts(const uint8_t* text, int p, int W, int32_t* out) {
   x3::window_counts(x3::ParHost(), 0, 1, text, p, W, T, out);
 }
 
+// K1's dictionary probe at each of the npos positions pos of a text row
+// (zero-padded to 64 bytes past the last), over the n entries strs (n x 32
+// bytes) and lens of a dictionary of size D, by the scan (probe, K2's) and
+// by the hash index of `slots` slots (0: hash_slots(D)), built as K1
+// builds it: the first K entries by a seeded start's hash_seed, the rest
+// one an event by hash_insert.  out [npos, 8]: the scan's okmask, len,
+// slot and len again, then the index's (hash_probe; hash_probe_len, the
+// veto's probe).  Returns the slots the index's lookups read.
+long long x3h_probe_pair(const uint8_t* strs, const int32_t* lens, int n,
+                         int D, int K, long long slots, const uint8_t* text,
+                         const int32_t* pos, int npos, int32_t* out) {
+  const x3::ParHost par;
+  std::vector<int32_t> plane(slots ? slots : x3::hash_slots(D), 0);
+  const x3::HashIx hx = x3::hash_index(plane.data(), plane.size(), D);
+  x3::hash_seed(par, hx, strs, lens, K);
+  for (int e = K; e < n; ++e) {
+    uint32_t w[x3::MML / 4];
+    for (int k = 0; k < x3::MML / 4; ++k)
+      w[k] = x3::load_word(strs + (int64_t)e * x3::MML + 4 * k);
+    x3::hash_insert(hx, x3::key_hash(x3::WordsOf{w}, lens[e]), e);
+  }
+  int visits = 0;
+  for (int i = 0; i < npos; ++i) {
+    int32_t* o = out + 8 * i;
+    const x3::Probe a = x3::probe(par, strs, lens, n, text + pos[i]);
+    uint32_t T[x3::MML / 4];
+    x3::target_words(text, pos[i], T);
+    uint64_t mask = 0, best = 0;
+    x3::hash_probe(par, hx, strs, lens, T, mask, best, visits);
+    const x3::Probe b = x3::make_probe(mask, best);
+    const int32_t got[8] = {
+        (int32_t)a.okmask, a.len, a.slot, a.len,
+        (int32_t)b.okmask, b.len, b.slot,
+        x3::hash_probe_len(par, hx, strs, lens, text, pos[i], visits)};
+    memcpy(o, got, sizeof(got));
+  }
+  return visits;
+}
+
 // Offsets of the dictionary planes a seeded start writes, as
 // x3_dict_layout in x3_encoder.cu: out [5] = strs, lens, rank_of, tag_of,
 // ix (int32 words).
@@ -165,16 +204,19 @@ namespace {
 
 // Each lane's starting scratch: a copy of init (one lane's scratch image,
 // seeds and warm tables written in) where it is not null, else zeros with
-// the K seeds written in by seed_dict.
+// the K seeds written in by seed_dict; then `extra` zero words (K1's hash
+// index).
 void start_scratch(const x3::Layout& lay, std::vector<int32_t>& scratch,
                    const int32_t* init, const uint8_t* seed_strs,
-                   const int32_t* seed_lens, int K, bool cumulative) {
+                   const int32_t* seed_lens, int K, bool cumulative,
+                   int64_t extra = 0) {
   if (init) {
     scratch.assign(init, init + lay.words);
-    return;
+  } else {
+    scratch.assign(lay.words, 0);
+    x3::seed_dict(lay, scratch.data(), seed_strs, seed_lens, K, cumulative);
   }
-  scratch.assign(lay.words, 0);
-  x3::seed_dict(lay, scratch.data(), seed_strs, seed_lens, K, cumulative);
+  scratch.resize(lay.words + extra, 0);
 }
 
 int encode_lanes(const uint8_t* text, const int32_t* tlen, int lanes,
@@ -191,7 +233,8 @@ int encode_lanes(const uint8_t* text, const int32_t* tlen, int lanes,
   // int32 elements keep the buffer aligned as the planes need
   std::vector<int32_t> smem(lay.smem_bytes / 4 + 1);
   for (int lane = 0; lane < lanes; ++lane) {
-    start_scratch(lay, scratch, init, seed_strs, seed_lens, K, false);
+    start_scratch(lay, scratch, init, seed_strs, seed_lens, K, false,
+                  x3::hash_slots(caps.D));
     x3::LaneIO io;
     io.text = text + (long long)lane * tb;
     io.tb = tb;

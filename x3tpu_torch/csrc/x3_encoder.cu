@@ -36,6 +36,12 @@
 //   warm start, the warm context tables into the scratch) copies its
 //   planes into shared memory once, at the lane's start, and nothing per
 //   event.
+// - The dictionary has a hash index in the lane's scratch: one warp
+//   answers the probe in 32 lookups, one a candidate length, and each
+//   warp a veto's in its own 32 with no barrier, where a scan reads every
+//   live entry (up to 11 000 at 1 MiB, 768 KiB of strings a lane, far
+//   more than L1 holds; at 16 KiB the scan of about 230 entries in shared
+//   memory was no faster).
 // - 512 worker threads: the scan's share of a thread halves against 256
 //   (992 workers, 1024 threads in all, measured slower).
 //
@@ -74,7 +80,7 @@ encoder_kernel(const uint8_t* __restrict__ text, const int32_t* __restrict__ tle
   io.tlen = tlen[lane];
   io.seeds = seeds;
   io.warm = warm;
-  io.scr = scratch + lane * lay.words;
+  io.scr = scratch + lane * (lay.words + x3::hash_slots(lay.D));
   io.smem = planes;
   io.words = words + lane * caps.out_words;
   io.byte_len = byte_lens + lane;
@@ -135,11 +141,17 @@ void x3_fam_layout(int D, int pair_cap, int items1, int items0,
   x3::fam_offsets(fam ? lay.f1 : lay.f0, out);
 }
 
+// int32 words of K1's hash index a lane's scratch holds after the
+// x3_scratch_words of the layout, at dictionary size D.
+long long x3_hash_slots(int D) { return x3::hash_slots(D); }
+
 // K1's registers a thread, static shared memory and local (spill) bytes a
-// thread, as the loaded module has them: out [3].
-int x3_encoder_info(int* out) {
+// thread, as the loaded module has them, of its unwarmed instantiation
+// (warm 0) or its warm one: out [3].
+int x3_encoder_info(int warm, int* out) {
   cudaFuncAttributes a;
-  const cudaError_t rc = cudaFuncGetAttributes(&a, encoder_kernel<false>);
+  const cudaError_t rc = cudaFuncGetAttributes(
+      &a, warm ? encoder_kernel<true> : encoder_kernel<false>);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;
@@ -147,17 +159,18 @@ int x3_encoder_info(int* out) {
 }
 
 // Encode `lanes` blocks on `stream`.  All pointers are device memory:
-// text u8 [lanes, tb], tlen i32 [lanes], scratch i32 [lanes, scratch_words]
-// and words u32 [lanes, out_words] zeroed, byte_lens i32 [lanes], counts
-// i32 [lanes, 5], sizes f32 [lanes, 5], flags i32 [lanes].  smem_mask: the
-// planes (x3_core.cuh PL_*) that live in shared memory; seeds: K, the
+// text u8 [lanes, tb], tlen i32 [lanes], scratch i32 [lanes,
+// scratch_words + x3_hash_slots(D)] and words u32 [lanes, out_words]
+// zeroed, byte_lens i32 [lanes], counts i32 [lanes, 5], sizes f32
+// [lanes, 5], flags i32 [lanes].  smem_mask: the planes (x3_core.cuh
+// PL_*) that live in shared memory; seeds: K, the
 // dictionary seeds the scratch holds (x3_core.cuh seed_dict, ix as
 // freqs), 0 for none; pair_n, hub0_n, hub1_n: the counts of the warm
 // tables the scratch holds (x3tpu_torch/vm/driver.py warm_scratch), 0
 // without warm start (any other launches the kernel's warm
 // instantiation).  Returns
-// cudaErrorInvalidValue when they need more than a block may have, else
-// cudaGetLastError() after the launch.
+// cudaErrorInvalidValue when they need more than a block may have or D is
+// past HASH_DICT_MAX, else cudaGetLastError() after the launch.
 int x3_encode(const void* text, const void* tlen, int lanes, long long tb,
               int T, int W, int f1, int f2, int nl, int D, int pair_cap,
               int items1, int items0, int small_cap, int promo_rows,
@@ -180,6 +193,7 @@ int x3_encode(const void* text, const void* tlen, int lanes, long long tb,
   if (lay.smem_bytes > x3::SMEM_BLOCK_MAX - x3::SMEM_STATIC)
     return (int)cudaErrorInvalidValue;
   const x3::WarmN warm{pair_n, {hub0_n, hub1_n}};
+  if (D > x3::HASH_DICT_MAX) return (int)cudaErrorInvalidValue;
   const auto kernel = warm.any() ? encoder_kernel<true> : encoder_kernel<false>;
   const cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

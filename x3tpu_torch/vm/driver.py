@@ -175,7 +175,9 @@ def _bind_encoder(lib: ctypes.CDLL, phases: bool = False) -> None:
     lib.x3_encode.argtypes = ([p, p, i, ll] + [i] * 12 + [ctypes.c_uint]
                               + [i] * 4 + [p] * (8 if phases else 7))
     lib.x3_encoder_info.restype = i
-    lib.x3_encoder_info.argtypes = [p]
+    lib.x3_encoder_info.argtypes = [i, p]
+    lib.x3_hash_slots.restype = ll
+    lib.x3_hash_slots.argtypes = [i]
 
 
 def _bind_decoder(lib: ctypes.CDLL, phases: bool = False) -> None:
@@ -199,26 +201,27 @@ def _load() -> Dict[str, ctypes.CDLL]:
         return _libs
 
 
-def _info(kernel: str) -> Dict[str, int]:
+def _info(kernel: str, warm: bool) -> Dict[str, int]:
     out = (ctypes.c_int * 3)()
     lib = _load()[kernel]
-    fn = lib.x3_encoder_info if kernel == "encoder" else lib.x3_decoder_info
-    rc = fn(out)
+    rc = (lib.x3_encoder_info(int(warm), out) if kernel == "encoder"
+          else lib.x3_decoder_info(out))
     if rc != 0:
         raise RuntimeError(f"x3_{kernel}_info failed: cudaError {rc}")
     return {"registers": out[0], "static_smem": out[1], "local_bytes": out[2]}
 
 
-def encoder_info() -> Dict[str, int]:
-    """K1 as the loaded module has it: registers a thread, static shared
-    memory, local (spill) bytes a thread."""
-    return _info("encoder")
+def encoder_info(warm: bool = False) -> Dict[str, int]:
+    """K1 as the loaded module has it, its unwarmed instantiation or its
+    warm one: registers a thread, static shared memory, local (spill) bytes
+    a thread."""
+    return _info("encoder", warm)
 
 
 def decoder_info() -> Dict[str, int]:
     """K2 as the loaded module has it: registers a thread, static shared
     memory, local (spill) bytes a thread."""
-    return _info("decoder")
+    return _info("decoder", False)
 
 
 def _fam_layout(h: int, s: int, items: int, small_cap: int, promo_rows: int,
@@ -267,16 +270,26 @@ def scratch_words(caps: CodecCaps) -> int:
     return layout(caps)["words"]
 
 
+def hash_slots(caps: CodecCaps) -> int:
+    """int32 words of K1's hash index of its dictionary, which a lane's
+    scratch holds after :func:`scratch_words` (x3_core.cuh hash_slots; K2's
+    scratch has none): the least power of two of at least twice
+    ``dict_cap``."""
+    return 1 << (2 * caps.dict_cap - 1).bit_length()
+
+
 # per-lane bytes of a launch's small outputs: lengths, counts, sizes, flags
 _LANE_SMALL = 4 + 20 + 20 + 4
 
 
 def encoder_lane_bytes(params: X3Params, caps: CodecCaps) -> int:
-    """Device bytes one lane of a K1 launch takes: its zeroed scratch, its
-    text row, its output words (int32 from the kernel, then the int64
-    copy and the masked one the wrapper returns) and its small outputs."""
-    return (4 * scratch_words(caps) + codec.text_bytes(params, caps)
-            + 20 * caps.out_words + _LANE_SMALL + 4)
+    """Device bytes one lane of a K1 launch takes: its zeroed scratch (the
+    hash index's plane included), its text row, its output words (int32
+    from the kernel, then the int64 copy and the masked one the wrapper
+    returns) and its small outputs."""
+    return (4 * (scratch_words(caps) + hash_slots(caps))
+            + codec.text_bytes(params, caps) + 20 * caps.out_words
+            + _LANE_SMALL + 4)
 
 
 def decoder_lane_bytes(caps: CodecCaps, iw: int) -> int:
@@ -419,6 +432,18 @@ def _kernel_layout(lib: ctypes.CDLL, caps: CodecCaps):
 
 
 @functools.lru_cache(maxsize=None)
+def _kernel_hash_slots(lib: ctypes.CDLL, caps: CodecCaps) -> int:
+    """K1's hash index words a lane (x3_hash_slots), which must be
+    :func:`hash_slots`'s."""
+    slots = lib.x3_hash_slots(caps.dict_cap)
+    if slots != hash_slots(caps):
+        raise RuntimeError(
+            f"K1's hash index ({slots} slots) is not driver.hash_slots' "
+            f"({hash_slots(caps)}) at {caps}")
+    return slots
+
+
+@functools.lru_cache(maxsize=None)
 def _kernel_fam_layout(lib: ctypes.CDLL, caps: CodecCaps):
     offsets = fam_layout(caps, lib)
     if offsets != fam_layout(caps):
@@ -430,16 +455,18 @@ def _kernel_fam_layout(lib: ctypes.CDLL, caps: CodecCaps):
 
 def _seeded_scratch(lanes: int, caps: CodecCaps, dev, seeds,
                     cumulative: bool, lib: Optional[ctypes.CDLL] = None,
-                    warm=None):
+                    warm=None, extra: int = 0):
     """A wave's zeroed scratch with the seeds and the warm state written
     in, K and the warm counts (:func:`warm_scratch`; zeros without
     ``warm``); the layout is the kernel library ``lib``'s
     (:func:`kernel_layout`, and for a warm start K1's family layout
-    query, which must equal :func:`layout`)."""
+    query, which must equal :func:`layout`), each lane ``extra`` words
+    longer (K1's hash index)."""
     k = codec.check_seeds(seeds, caps, warm)
     lib = lib or _load()["encoder"]
     words, offsets = kernel_layout(caps, lib)
-    scratch = torch.zeros((lanes, words), dtype=torch.int32, device=dev)
+    scratch = torch.zeros((lanes, words + extra), dtype=torch.int32,
+                          device=dev)
     if k:
         seed_scratch(scratch, offsets, seeds, cumulative)
     counts = (0, 0, 0)
@@ -549,8 +576,9 @@ def launch_encode(text: torch.Tensor, tlen: torch.Tensor, params: X3Params,
     with torch.cuda.device(dev):
         stream = stream or torch.cuda.current_stream(dev)
         with torch.cuda.stream(stream):
-            scratch, k, warm_n = _seeded_scratch(lanes, caps, dev, seeds,
-                                                 False, lib, warm)
+            scratch, k, warm_n = _seeded_scratch(
+                lanes, caps, dev, seeds, False, lib, warm,
+                _kernel_hash_slots(lib, caps))
             words = torch.zeros((lanes, caps.out_words), dtype=torch.int32,
                                 device=dev)
             byte_lens = torch.empty((lanes,), dtype=torch.int32, device=dev)
