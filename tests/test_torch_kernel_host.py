@@ -81,6 +81,8 @@ def core():
     lib.x3h_probe_pair.argtypes = [p, p, i, i, i, ctypes.c_longlong, p, p,
                                    i, p]
     lib.x3h_probe_pair.restype = ctypes.c_longlong
+    lib.x3h_ix_tree.argtypes = [i, i, i, p, p, p, p]
+    lib.x3h_ix_tree.restype = ctypes.c_longlong
     return lib
 
 
@@ -473,3 +475,64 @@ def test_core_hash_probe_matches_scan(core, name):
         dataclasses.replace(CAPS_16K, dict_cap=dict_cap)))
     assert chain > 2 if name == "collide_wrap" else (
         chain < 1.3 * (1 + 1 / (1 - load) ** 2) / 2), chain
+
+
+# K1's index model as a Fenwick tree (x3_core.cuh ix_tree_*) against the
+# plain sums over its freqs it replaced.
+
+# case: (D, seeds, events, share of events that are new entries, the hit's
+# rank: "random", "first" (0) or "last" (dn - 1))
+IX_TREE_CASES = {
+    "d1024_k0": (1024, 0, 3000, 0.3, "random"),
+    "d1024_k600": (1024, 600, 1000, 0.3, "random"),
+    "d24576_k0": (24576, 0, 6000, 0.5, "random"),
+    "d24576_k600": (24576, 600, 6000, 0.5, "random"),
+    "d1024_k600_first": (1024, 600, 1000, 0.3, "first"),
+    "d1024_k0_last": (1024, 0, 2000, 0.3, "last"),
+    "d1024_k600_full": (1024, 600, 3000, 0.6, "random"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(IX_TREE_CASES))
+def test_core_ix_tree_matches_plain_sums(core, name):
+    """The index model's tree, built from a seeded start's freqs, then
+    given a random mix of new entries and rank gains, each reaching the
+    tree an event later as in K1, gives each hit the plain sums over the freqs
+    (low below its rank, its span, the total over the live entries): at
+    the 16 KiB and 1 MiB caps' dict_cap, with and without seeds, at rank 0
+    and rank dn - 1, and with the model full (new entries past D
+    dropped)."""
+    d, k, n, new, at = IX_TREE_CASES[name]
+    rng = np.random.default_rng(sorted(IX_TREE_CASES).index(name))
+    is_new = rng.random(n) < new
+    idx1 = (rng.random(n) < 0.7).astype(np.int32)
+    rank = np.full(n, -1, np.int32)
+    dn = k
+    for s in range(n):   # a hit's rank among the entries live then
+        if not is_new[s] and dn > 0:
+            rank[s] = {"random": rng.integers(0, dn), "first": 0,
+                       "last": np.iinfo(np.int32).max}[at]  # max: dn - 1
+        elif dn < d:
+            dn += 1
+    out = np.zeros((n, 3), np.int32)
+    ix = np.zeros(d, np.int32)
+    nodes = core.x3h_ix_tree(d, k, n, rank.ctypes.data, idx1.ctypes.data,
+                             out.ctypes.data, ix.ctypes.data)
+    want = np.zeros(d, np.int64)
+    want[:k] = 1
+    dn, hits = k, 0
+    for s in range(n):
+        if rank[s] >= 0:
+            r = min(int(rank[s]), dn - 1)
+            assert out[s].tolist() == [want[:r].sum(), want[r],
+                                       want[:dn].sum()], (s, r, dn)
+            want[r] += idx1[s]
+            hits += 1
+        else:
+            assert not out[s].any()
+            if dn < d:
+                want[dn] = 1
+                dn += 1
+    np.testing.assert_array_equal(ix, want)
+    assert hits > n // 4 and nodes > hits
+    assert dn == d if name.endswith("full") else dn < d

@@ -187,9 +187,9 @@ def test_journal_mesh_size_mismatch(tmp_path, monkeypatch):
 
 
 def test_entries_on_one_card_share_its_memory(monkeypatch):
-    """Two entries on one card get half the card's budget each: 57 lanes
-    of caps_for_block(1 MiB) a launch where one entry gets 114 (an 80 GB
-    card); a wave of 120 lanes is cut into launches of 57, 3 in each
+    """Two entries on one card get half the card's budget each: 56 lanes
+    of caps_for_block(1 MiB) a launch where one entry gets 113 (an 80 GB
+    card); a wave of 120 lanes is cut into launches of 56, 4 in each
     group, every launch made before any result is read."""
     props = types.SimpleNamespace(total_memory=85_045_116_928)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
@@ -197,8 +197,8 @@ def test_entries_on_one_card_share_its_memory(monkeypatch):
     caps = runtime.caps_for_block(1 << 20)
     lane = driver.encoder_lane_bytes(X3Params(), caps)
     card = torch.device("cuda", 0)
-    assert meshmod.launch_lanes(lane, caps, card) == 114
-    assert meshmod.launch_lanes(lane, caps, card, sharing=2) == 57
+    assert meshmod.launch_lanes(lane, caps, card) == 113
+    assert meshmod.launch_lanes(lane, caps, card, sharing=2) == 56
     assert meshmod.launch_lanes(lane, caps, card, sharing=2) == (
         meshmod.launch_lanes(lane, caps, card, int(
             meshmod.MEM_SHARE * props.total_memory) // 2))
@@ -216,12 +216,12 @@ def test_entries_on_one_card_share_its_memory(monkeypatch):
     monkeypatch.setattr(meshmod, "_on_host", on_host)
     two = meshmod.Mesh((card, card), (None, None))
     meshmod._sharded(120, two, lane, caps, None, launch)
-    assert made == [(card, 0, 57), (card, 57, 60), (card, 60, 117),
-                    (card, 117, 120)]
+    assert made == [(card, 0, 56), (card, 56, 60), (card, 60, 116),
+                    (card, 116, 120)]
     assert results == [4, 4, 4, 4]
     made.clear()
     meshmod._sharded(120, meshmod.single(card), lane, caps, None, launch)
-    assert made == [(card, 0, 114), (card, 114, 120)]
+    assert made == [(card, 0, 113), (card, 113, 120)]
 
 
 def test_make_mesh_refuses_what_is_not_there():

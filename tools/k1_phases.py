@@ -16,7 +16,9 @@ counted kernel gives the main path's words, and prints for the slowest
 lane the cycles per event of each phase, the leader thread's share, and
 the events; where the tree's K1 has a hash index of its dictionary
 (dict_cap 4096 and up), the lookups it made and the slots they visited
-(their ratio: the mean chain length); then one JSON line.  The leader
+(their ratio: the mean chain length); where its index model is a tree,
+the cycles of the warp that reads it in pass 2, the hits that queried
+it and the tree nodes read and written; then one JSON line.  The leader
 reads the clock right after each of the CTA's barriers, so a phase's
 cycles are the whole CTA's time in it.  Cycles convert to time at the
 counted kernel's own rate (its CUDA-event time over the slowest lane's
@@ -44,14 +46,18 @@ SUBS = ("pass-1 ctx rows (leader's warp)", "leader: mode choice",
         "leader: AC coding", "leader: table updates")
 # the hash index's counters (x3_core.cuh PH_HASH_*), in trees that have them
 HASH = ("hash lookups", "hash slots visited")
+# the index model tree's counters (x3_core.cuh PH_IX*), in trees that have
+# them: the cycles of the index model's warp in pass 2, the hits that
+# queried it, the nodes read and written
+IX = ("index model (its warp, pass 2)", "index queries", "tree nodes")
 LANES = 32
 BLOCKS_KIB = (16, 1024)
 
 
-def has_hash(tree: pathlib.Path) -> bool:
-    """Whether the tree's K1 counts its hash index (more phase slots)."""
+def has_counter(tree: pathlib.Path, slot: str) -> bool:
+    """Whether the tree's K1 has the phase slot ``slot`` (x3_core.cuh)."""
     core = tree / "x3tpu_torch" / "csrc" / "x3_core.cuh"
-    return "PH_HASH_LOOKUPS" in core.read_text()
+    return slot in core.read_text()
 
 
 def corpus_bytes(block: int) -> bytes:
@@ -127,9 +133,10 @@ def split_of(tree: pathlib.Path, data_path: pathlib.Path, block: int) -> dict:
     blocks = [data[i: i + block] for i in range(0, len(data), block)]
     text, tlen = codec.pack_blocks(blocks, params, caps)
     text, tlen = torch.from_numpy(text).cuda(), torch.from_numpy(tlen).cuda()
-    hashed = has_hash(tree)
-    nslots = len(PHASES) + len(SLOTS) + len(SUBS) + (len(HASH) if hashed
-                                                        else 0)
+    hashed = has_counter(tree, "PH_HASH_LOOKUPS")
+    ix_tree = hashed and has_counter(tree, "PH_IX_QUERIES")
+    nslots = (len(PHASES) + len(SLOTS) + len(SUBS) + len(HASH) * hashed
+              + len(IX) * ix_tree)
     ph = torch.zeros((lanes, nslots), dtype=torch.int64, device="cuda")
 
     def plain_call():
@@ -183,6 +190,20 @@ def split_of(tree: pathlib.Path, data_path: pathlib.Path, block: int) -> dict:
         print(f"  hash index (all lanes): {hash_counts['lookups_per_event']:.2f}"
               f" lookups an event, {hash_counts['slots_per_lookup']:.3f} "
               f"slots a lookup (a lookup: one key, one lane)", flush=True)
+    ix_counts = {}
+    if ix_tree:
+        at = n + len(SLOTS) + len(SUBS) + len(HASH)
+        queries = int(row[at + 1])
+        ix_counts = {
+            "cycles_per_event": row[at] / events,
+            "cycles_per_query": row[at] / max(queries, 1),
+            "queries": queries, "nodes": int(row[at + 2]),
+            "nodes_per_event": row[at + 2] / events}
+        print(f"  {IX[0]:28s} {ix_counts['cycles_per_event']:10.1f} "
+              f"cycles/event  {ix_counts['cycles_per_query']:.1f} a query; "
+              f"{queries} queries, {ix_counts['nodes']} tree nodes read "
+              f"and written ({ix_counts['nodes_per_event']:.2f} an event)",
+              flush=True)
     mean = (arr[:, :n].sum(0) / arr[:, n + 1].sum()).tolist()
     return {
         "tree": str(tree), "block_bytes": block,
@@ -196,7 +217,7 @@ def split_of(tree: pathlib.Path, data_path: pathlib.Path, block: int) -> dict:
         "leader_share": row[PHASES.index("leader chain")] / total,
         "split": split, "parts": subs,
         "mean_cycles_per_event_all_lanes": dict(zip(PHASES, mean)),
-        "hash_index": hash_counts,
+        "hash_index": hash_counts, "index_model_tree": ix_counts,
         "device": torch.cuda.get_device_name(0)}
 
 

@@ -10,7 +10,9 @@ undefined`` into ``build/x3tpu_torch/`` and runs, in a child process that
 preloads the sanitizers' runtimes, these cases through both cores: the
 golden inputs of every golden paramset (K1 with its planes in the scratch
 and in a buffer of their own; each stream must be the golden one) and the
-golden streams (each must decode to its input); small capacities where
+golden streams (each must decode to its input); K1's index model tree
+(``x3h_ix_tree``) from rank 0 to the last position, filled past its
+size; small capacities where
 every overflow flag fires, encoded and decoded; corrupt streams (random
 bytes, a golden stream cut in half, zeros, and every stream of 0-4 bytes),
 which must end in a flag; seeded encodes and decodes (seeds trained by
@@ -100,6 +102,8 @@ class Core:
         lib.x3h_fam_layout.argtypes = [i] * 7 + [p]
         lib.x3h_scratch_words.argtypes = [i] * 6
         lib.x3h_scratch_words.restype = ctypes.c_longlong
+        lib.x3h_ix_tree.argtypes = [i, i, i, p, p, p, p]
+        lib.x3h_ix_tree.restype = ctypes.c_longlong
 
     def warm_scratch(self, caps, seeds, warm, cumulative):
         """One lane's scratch as the wrappers start a warm lane, and the
@@ -242,6 +246,20 @@ def child(lib_path) -> int:
     _, dflags = core.decode(streams, tiny)
     check(all((dflags & (1 << b)).any() for b in range(4)),
           "tiny caps: the decoder's state flags fire")
+
+    # K1's index model tree at both ends of the model, filled past D
+    for d, k in ((1024, 0), (24576, 600), (5, 5)):
+        n = 3 * d
+        rank = np.where(np.arange(n) % 3 == 0, -1,
+                        np.where(np.arange(n) % 2 == 0, 0,
+                                 np.iinfo(np.int32).max)).astype(np.int32)
+        idx1 = np.ones(n, np.int32)
+        out = np.zeros((n, 3), np.int32)
+        ix = np.zeros(d, np.int32)
+        core.lib.x3h_ix_tree(d, k, n, rank.ctypes.data, idx1.ctypes.data,
+                             out.ctypes.data, ix.ctypes.data)
+        check(int(ix.sum()) == int(out[-1, 2]) + 1 and (ix > 0).all(),
+              f"index model tree, D {d}, {k} seeds: {n} events, full")
 
     # corrupt streams: each ends in a flag or an overflow, never a fault
     half = (GOLDEN / "text_small.t15_w8.x3").read_bytes()

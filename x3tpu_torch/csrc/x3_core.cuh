@@ -10,16 +10,17 @@
 //
 // Memory.  A lane's tables live in a zeroed global scratch (make_layout);
 // the encoder moves the hot planes of it (the text row, the dictionary
-// planes, both hubs, the ctx1 row maps) into the CTA's dynamic shared
-// memory where the launch's plan puts them (place_smem; the plan itself
-// is x3tpu_torch/vm/driver.py smem_plan).  Every access goes through a
-// pointer resolved once per lane (Planes), so both placements run the
-// same code.
+// planes, both hubs, the ctx1 row maps, the index model's tree) into the
+// CTA's dynamic shared memory where the launch's plan puts them
+// (place_smem; the plan itself is x3tpu_torch/vm/driver.py smem_plan).
+// Every access goes through a pointer resolved once per lane (Planes), so
+// both placements run the same code.
 //
 // Work split (encoder, one event).  Pass 1 ends in one barrier: every
 // warp takes a share of the previous event's rank update; the second warp
-// indexes the last new dictionary entry and probes the dictionary's hash
-// index (a lookup a lane); every other warp but the first takes the
+// indexes the last new dictionary entry, probes the dictionary's hash
+// index (a lookup a lane) and adds the last event's gain to the index
+// model's tree (a node a lane); every other warp but the first takes the
 // window scan (word-wide compares, a byte compare of four positions to
 // skip the ones whose first byte differs, a histogram per warp); the
 // first warp applies the previous hit's context updates and resolves this
@@ -27,12 +28,13 @@
 // models' prefix sums and the literal bytes' duplicate corrections.  Every
 // warp then derives the sweep from the histograms itself (a vetoed
 // candidate costs each warp its own lookups, and no barrier).
-// Pass 2 (hits) ends in one barrier: the ctx0 row, the ctx1 row and the
-// index model are searched and summed by separate warps at once, each
-// with its mode's f32 probability.  The leader thread then picks the mode,
-// pushes the AC symbols into a shared-memory queue that K1's coder warp
-// drains (code_lane), and updates the models and the dictionary while the
-// rest wait at the event's last barrier.
+// Pass 2 (hits) ends in one barrier: the ctx0 row and the ctx1 row are
+// searched and summed, and the index model's tree read (a node a lane), by
+// separate warps at once, each with its mode's f32 probability.  The
+// leader thread then picks the mode, pushes the AC symbols into a
+// shared-memory queue that K1's coder warp drains (code_lane), and updates
+// the models and the dictionary while the rest wait at the event's last
+// barrier.
 //
 // On the host, Par is one thread and one one-lane warp: loops run
 // serially, reductions and scans are the identity and syncs are no-ops.
@@ -85,11 +87,12 @@ struct Fam {
 };
 
 // The planes that may live in shared memory, in the plan's order (hottest
-// first); x3tpu_torch/vm/driver.py SMEM_PLANES names them.
+// first, then K1's index model tree); x3tpu_torch/vm/driver.py
+// SMEM_PLANES names them.
 enum {
   PL_TEXT, PL_STRS, PL_LENS, PL_RANK_OF, PL_IX, PL_F1_HUB_TAGS,
   PL_F1_HUB_FREQS, PL_F1_HUB_PAIR, PL_F0_HUB_TAGS, PL_F0_HUB_FREQS, PL_F1_N,
-  PL_F1_PROMO, PL_COUNT
+  PL_F1_PROMO, PL_IX_TREE, PL_COUNT
 };
 
 // Scratch layout of one lane.  The dictionary keeps strs (D x 32 bytes),
@@ -98,10 +101,11 @@ enum {
 // plane is zero.  A seeded start (x3tpu/codec.py _init_shared) writes the
 // K seeds' strs and lens, rank_of = tag_of = 0..K-1 and ix over its first
 // K entries (seed_dict) before the launch; both kernels read the same
-// planes, but K1 keeps ix as freqs (1 a seed) and K2 as their inclusive
-// cumulative sum (1..K).  sm[k] is plane
-// k's byte offset in the CTA's dynamic shared memory, or -1 where the plane
-// stays in the scratch (the text row then stays in the kernel's input).
+// planes, but K1 keeps ix as freqs (1 a seed; their tree, ix_tree_seed,
+// past the layout) and K2 as their inclusive cumulative sum (1..K).
+// sm[k] is plane k's byte offset in the CTA's dynamic shared memory, or -1
+// where the plane stays in the scratch (the text row then stays in the
+// kernel's input).
 struct Layout {
   int D;
   int64_t strs, lens, rank_of, tag_of, ix;
@@ -160,11 +164,22 @@ X3_HD Layout make_layout(const Caps& c) {
   return L;
 }
 
+// K1's planes past the layout's words (K2's scratch has neither): the
+// dictionary's hash index, hash_slots(D) u32 slots (the least power of two
+// >= 2D), then the index model's tree, ix_tree_words(D) u32 nodes.
+X3_HD int64_t hash_slots(int D) {
+  int64_t h = 1;
+  while (h < 2 * (int64_t)D) h <<= 1;
+  return h;
+}
+X3_HD int64_t ix_tree_words(int D) { return (int64_t)D + 1; }
+
 // Bytes of plane k (tb: the text row's width).
 X3_HD int64_t plane_bytes(const Layout& L, int64_t tb, int k) {
   if (k == PL_TEXT) return tb;
   if (k == PL_STRS) return (int64_t)L.D * MML;
   if (k == PL_F1_N || k == PL_F1_PROMO) return 4 * (int64_t)L.f1.S;
+  if (k == PL_IX_TREE) return 4 * ix_tree_words(L.D);
   return 4 * (int64_t)L.D;  // lens, rank_of, ix and the hubs (H = D)
 }
 
@@ -221,6 +236,7 @@ X3_HD int64_t plane_offset(const Layout& L, int k) {
     case PL_F0_HUB_TAGS: return L.f0.hub_tags;
     case PL_F0_HUB_FREQS: return L.f0.hub_freqs;
     case PL_F1_N: return L.f1.n;
+    case PL_IX_TREE: return L.words + hash_slots(L.D);
     default: return L.f1.promo;  // PL_F1_PROMO
   }
 }
@@ -881,13 +897,6 @@ X3_HD Probe probe(const P& par, const uint8_t* strs, const int32_t* lens, int n,
 // the hash above the tag.
 constexpr int HASH_DICT_MAX = 1 << 24;
 
-// Slots of the index at dictionary size D: the least power of two >= 2D.
-X3_HD int64_t hash_slots(int D) {
-  int64_t h = 1;
-  while (h < 2 * (int64_t)D) h <<= 1;
-  return h;
-}
-
 struct HashIx {
   uint32_t* slot;
   uint32_t hmask;  // slots - 1
@@ -1028,6 +1037,61 @@ X3_HD int hash_probe_len(const P& par, const HashIx& x, const uint8_t* strs,
   for (int len = par.lane() + 1; len <= MML; len += P::WS)
     if (hash_find(x, strs, lens, WordsAt{txt, pos}, len, visits)) best = len;
   return par.wmax(best);
+}
+
+// ---------------------------------------------------------------------------
+// K1's index model as a Fenwick (binary indexed) tree over its rank
+// positions, beside the plain freqs of ix: a hit's low, the freqs below
+// its rank, is the sum of at most log2(D) + 1 nodes, read in one round
+// (one a lane), in place of a sum over every live entry.  The model only
+// ever gains 1 at one position an event (an E_IDX1 hit's rank, or a new
+// entry at dn), so the tree is exact.  It is a plane of ix_tree_words(D)
+// u32 words after the hash index's slots (K1 only), zeroed with the rest,
+// and one of the shared-memory plan's (PL_IX_TREE); node j (1..D; word 0
+// unused) holds the freqs of positions [j - lowbit(j), j).
+// ---------------------------------------------------------------------------
+
+// Set the nodes over the model's first n freqs (a seeded start's; the
+// tree is zero past them), all threads at once, a node each.
+template <class P>
+X3_HD void ix_tree_seed(const P& par, uint32_t* tree, int D,
+                        const int32_t* ix, int n) {
+  for (int j = par.tid() + 1; j <= D; j += par.nthr()) {
+    const int lo = j - (j & -j);
+    uint32_t s = 0;
+    for (int k = lo; k < imin(j, n); ++k) s += (uint32_t)ix[k];
+    if (lo < n) tree[j] = s;
+  }
+}
+
+// Warp-collective: the freq at position pos (< D) gains 1.  Lane b adds to
+// the node of lowbit 2^b that covers pos, where there is one.  nodes
+// counts the nodes written.
+template <class P>
+X3_HD void ix_tree_add(const P& par, uint32_t* tree, int D, int pos,
+                       int& nodes) {
+  for (int b = par.lane(); b < 32; b += P::WS) {
+    const uint32_t j = (((uint32_t)pos >> b) + 1u) << b;
+    if (((j >> b) & 1u) && j <= (uint32_t)D) {
+      tree[j] += 1u;
+      ++nodes;
+    }
+  }
+}
+
+// Warp-collective: the sum of the freqs at positions [0, r) (r <= D), every
+// lane gets it.  Lane b reads the node of r's bit b (r with its lower bits
+// cleared), where that bit is set.  nodes counts the nodes read.
+template <class P>
+X3_HD uint32_t ix_tree_prefix(const P& par, const uint32_t* tree, int r,
+                              int& nodes) {
+  uint32_t s = 0;
+  for (int b = par.lane(); b < 32; b += P::WS)
+    if ((r >> b) & 1) {
+      s += tree[(r >> b) << b];
+      ++nodes;
+    }
+  return (uint32_t)par.wsum((int)s);
 }
 
 // This thread's share of the window scan (thread tid of nthr; none when
@@ -1441,7 +1505,8 @@ struct LaneIO {
 // (thread 32's: the insert and the lookups), PH_SCAN the first scanning
 // thread's (thread 64's), PH_RANKS the leader's share of the rank update,
 // and PH_PASS1 the rest of pass 1 on the leader: its ctx rows
-// (PH_SUB_CTXROWS), then the wait for the others.  Slots: the phases,
+// (PH_SUB_CTXROWS), then the wait for the others.  In pass 2, PH_IX is the
+// index model's warp's own share (its first thread's).  Slots: the phases,
 // then the lane's cycles and event counts.
 enum {
   PH_PASS1, PH_PROBE, PH_SCAN, PH_SWEEP, PH_HIT, PH_LEADER, PH_RANKS,
@@ -1451,7 +1516,11 @@ enum {
   PH_SUB_CTXROWS, PH_SUB_MODE, PH_SUB_CODE, PH_SUB_UPDATE,
   // the hash index's warp: its lookups (one a key: 32 a probe, the event's
   // and each veto's) and the slots they read (their ratio: the mean chain)
-  PH_HASH_LOOKUPS, PH_HASH_VISITS, PH_SLOTS
+  PH_HASH_LOOKUPS, PH_HASH_VISITS,
+  // the index model's tree: its warp's pass-2 cycles, the hits that
+  // queried it, and its nodes read (pass 2) and written (the adds, on the
+  // hash index's warp in pass 1)
+  PH_IX, PH_IX_QUERIES, PH_IX_NODES, PH_SLOTS
 };
 #if defined(X3_PHASES) && defined(__CUDA_ARCH__)
 #define X3_PHASE_BY(k, owner)                         \
@@ -1546,7 +1615,9 @@ X3_HD void init_smem(const P& par, const Layout& L, const LaneIO& io) {
 // tables and io.warm's counts; an unwarmed launch runs the instantiation
 // without them, the code K1 ran before warm start (as decode_lane's, read
 // from arguments they measured slower there, x3_dec_core.cuh).  The
-// dictionary's hash index is the plane after the scratch's Layout::words.
+// dictionary's hash index is the plane after the scratch's Layout::words,
+// and the index model's tree the plane after the hash index, where the
+// plan does not put it in shared memory.
 template <bool kWarm = false, class P>
 X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
                        const Layout& L, const LaneIO& io, Lane& R, Shared& sh) {
@@ -1554,8 +1625,9 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
   const uint8_t* txt = pl.text;
   const int cap = cp.out_words;
   // warps with jobs of their own (all warp 0 on the host): pass 1 the ctx
-  // rows, the index's insert and lookups and the models' prefixes, pass 2
-  // the ctx0 row, the ctx1 row and the index model
+  // rows, the index's insert and lookups with the index model tree's add,
+  // and the models' prefixes, pass 2 the ctx0 row, the ctx1 row and the
+  // index model
   const int nw = par.nwarps();
   const int w_ctx0 = 0, w_ctx1 = 1 % nw, w_lit = 2 % nw, w_ix = 2 % nw;
   const int w_hash = 1 % nw;
@@ -1563,12 +1635,16 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
   const int s0 = P::WS * imin(nw - 1, 2);
   const int stid = par.tid() - s0, snthr = par.nthr() - s0;
   const HashIx hx = hash_index(io.scr + L.words, hash_slots(L.D), L.D);
+  uint32_t* const ixt = (uint32_t*)plane_at(
+      L, PL_IX_TREE, io.scr, io.smem, plane_offset(L, PL_IX_TREE));
   int visits = 0;  // slots read by this thread's lookups (X3_PHASES)
+  int nodes = 0;   // the index model's tree nodes it read or wrote (idem)
 #if defined(X3_PHASES) && defined(__CUDA_ARCH__)
   long long ph[PH_SLOTS] = {0};
   const long long ph_start = clock64();
   long long ph_t = ph_start, ph_s = ph_start;
   const int p0 = P::WS * w_hash;  // PH_PROBE's thread
+  const int x0 = P::WS * w_ix;    // PH_IX's thread
 #endif
 
   // the AC coder: on the device the coder warp, fed through the queue
@@ -1584,6 +1660,7 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
   };
 #endif
   int pend = -1;  // the leader's: the last hit's tag, its contexts pending
+  int idx1_seen = 0;  // the hash index's warp's: E_IDX1 events it has seen
   init_smem<kWarm>(par, L, io);
   if (par.leader()) {
     R.flags = 0;
@@ -1608,8 +1685,10 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
   for (int i = par.tid(); i < 256; i += par.nthr()) R.ch[i] = 1;
   par.sync();
   if (io.seeds > 0) {
-    // a seeded start's entries, indexed before the first event
+    // a seeded start's entries, indexed before the first event, and
+    // their freqs in the index model's tree
     hash_seed(par, hx, pl.strs, pl.lens, io.seeds);
+    ix_tree_seed(par, ixt, L.D, pl.ix, io.seeds);
     par.sync();
   }
 
@@ -1686,6 +1765,14 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
         hash_insert(hx, key_hash(WordsRow{sh.t32}, sh.flen), sh.op_n);
       par.syncwarp();
       hash_probe(par, hx, pl.strs, pl.lens, T, mask, best, visits);
+      // the last event's gain in the index model, in its tree before this
+      // event's pass 2 reads it: a new entry's freq at op_n, or an E_IDX1
+      // hit's at its rank (the leader counted one more E_IDX1 event)
+      const int idx1 = R.counts[E_IDX1];
+      const int gain = sh.op == OP_INSERT ? sh.op_n
+                       : idx1 != idx1_seen ? imin(sh.op_r, L.D - 1) : -1;
+      idx1_seen = idx1;
+      if (gain >= 0) ix_tree_add(par, ixt, L.D, gain, nodes);
     }
     X3_PHASE_BY(PH_PROBE, p0);
     window_counts(par, stid, snthr, txt, p, prm.W, T, sh.wcnt[par.warp()]);
@@ -1740,6 +1827,7 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
     // a warp of its own, with its mode's probability (x3.c:150-172); one
     // barrier
     if (hit) {
+      X3_CLOCK(x0);
       const int ev_tot = small_stats(R.ev, E_LAST, 0).total;
       if (par.warp() == w_ctx0)
         ctx_mode(par, pl.f0, sh.v0, R.hub_n[0], tag,
@@ -1748,18 +1836,12 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
         ctx_mode(par, pl.f1, sh.v1, R.hub_n[1], tag,
                  prob(R.ev[E_CTX1], ev_tot), sh.f1, sh.s1, sh.p1);
       if (par.warp() == w_ix) {
-        // entries past dn have freq 0
+        // the freqs below the rank from the tree; the total is a freq of 1
+        // a live entry (seed_dict, or inserted) and 1 an E_IDX1 event
         const int rank = pl.rank_of[tag];
-        uint32_t low = 0, total = 0;
-#pragma unroll 4
-        for (int i = par.lane(); i < R.dn; i += P::WS) {
-          const uint32_t f = (uint32_t)pl.ix[i];
-          total += f;
-          low += i < rank ? f : 0u;
-        }
         Stats st;
-        st.low = par.wsum((int)low);
-        st.total = par.wsum((int)total);
+        st.low = (int)ix_tree_prefix(par, ixt, rank, nodes);
+        st.total = R.dn + R.counts[E_IDX1];
         st.span = pl.ix[imin(rank, L.D - 1)];
         if (par.lane() == 0) {
           sh.sx = st;
@@ -1767,6 +1849,8 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
           sh.px = fmul(prob(R.ev[E_IDX1], ev_tot),
                        prob(st.span, imax(st.total, 1)));
         }
+        X3_PHASE_BY(PH_IX, x0);
+        X3_COUNT_WARP(PH_IX_QUERIES, par.lane() == 0 ? 1 : 0);
       }
       par.sync();
     }
@@ -1868,6 +1952,9 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
     X3_PHASE(PH_LEADER);
   }
 
+  if (par.warp() == w_hash || par.warp() == w_ix)
+    X3_COUNT_WARP(PH_IX_NODES, nodes);
+
   // EOF and flush (x3.c:432-433)
   if (par.leader()) {
     if (pend >= 0) {  // the last hit's context updates, for their flags
@@ -1898,7 +1985,8 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
     ph[PH_TOTAL] = clock64() - ph_start;
     for (int k = 0; k < PH_SLOTS; ++k)
       if (s0 == 0 || (k != PH_PROBE && k != PH_SCAN && k != PH_HASH_LOOKUPS &&
-                      k != PH_HASH_VISITS))
+                      k != PH_HASH_VISITS && k != PH_IX &&
+                      k != PH_IX_QUERIES && k != PH_IX_NODES))
         io.phases[k] = ph[k];
 #endif
   }
@@ -1909,6 +1997,15 @@ X3_HD void encode_lane(const P& par, const Params& prm, const Caps& cp,
     io.phases[PH_HASH_VISITS] = ph[PH_HASH_VISITS];
   }
   if (s0 && par.tid() == s0) io.phases[PH_SCAN] = ph[PH_SCAN];
+  if (s0 && par.tid() == x0) {
+    io.phases[PH_IX] = ph[PH_IX];
+    io.phases[PH_IX_QUERIES] = ph[PH_IX_QUERIES];
+  }
+  // the nodes the adds wrote and those the queries read, from two warps
+  // (the host zeroes the slot)
+  if (s0 && (par.tid() == p0 || par.tid() == x0))
+    atomicAdd((unsigned long long*)(io.phases + PH_IX_NODES),
+              (unsigned long long)ph[PH_IX_NODES]);
 #endif
 }
 

@@ -154,6 +154,48 @@ long long x3h_probe_pair(const uint8_t* strs, const int32_t* lens, int n,
   return visits;
 }
 
+// K1's index model through its tree (ix_tree_seed, ix_tree_add,
+// ix_tree_prefix), driven as encode_lane drives it: K seeds of freq 1
+// (seed_dict) in a model of D positions, then n events.  Event s is a hit
+// at rank min(rank[s], live entries - 1), or a new entry where rank[s] < 0
+// or none is live (dropped once D are).  A hit takes its low from the
+// tree, its span from the freqs and its total as K1 counts it (the live
+// entries and the E_IDX1 events), and gains 1 at its rank where idx1[s]
+// (an E_IDX1 event); a new entry gets freq 1 at the live count.  A gain
+// reaches the tree in the next event, as in pass 1.  out [n, 3]: each
+// hit's low, span and total (zeros for a new entry); ix [D]: the freqs at
+// the end.  Returns the tree nodes read and written.
+long long x3h_ix_tree(int D, int K, int n, const int32_t* rank,
+                      const int32_t* idx1, int32_t* out, int32_t* ix) {
+  const x3::ParHost par;
+  std::vector<uint32_t> tree(x3::ix_tree_words(D), 0);
+  memset(ix, 0, sizeof(int32_t) * D);
+  for (int j = 0; j < K; ++j) ix[j] = 1;
+  x3::ix_tree_seed(par, tree.data(), D, ix, K);
+  int dn = K, idx1_n = 0, add = -1, nodes = 0;
+  for (int s = 0; s < n; ++s) {
+    if (add >= 0) x3::ix_tree_add(par, tree.data(), D, add, nodes);
+    add = -1;
+    int32_t* o = out + 3 * s;
+    o[0] = o[1] = o[2] = 0;
+    if (rank[s] >= 0 && dn > 0) {
+      const int r = x3::imin(rank[s], dn - 1);
+      o[0] = (int32_t)x3::ix_tree_prefix(par, tree.data(), r, nodes);
+      o[1] = ix[r];
+      o[2] = dn + idx1_n;
+      if (idx1[s]) {
+        ix[r] += 1;
+        add = r;
+        idx1_n += 1;
+      }
+    } else if (dn < D) {
+      ix[dn] = 1;
+      add = dn++;
+    }
+  }
+  return nodes;
+}
+
 // Offsets of the dictionary planes a seeded start writes, as
 // x3_dict_layout in x3_encoder.cu: out [5] = strs, lens, rank_of, tag_of,
 // ix (int32 words).
@@ -205,7 +247,7 @@ namespace {
 // Each lane's starting scratch: a copy of init (one lane's scratch image,
 // seeds and warm tables written in) where it is not null, else zeros with
 // the K seeds written in by seed_dict; then `extra` zero words (K1's hash
-// index).
+// index and index model tree).
 void start_scratch(const x3::Layout& lay, std::vector<int32_t>& scratch,
                    const int32_t* init, const uint8_t* seed_strs,
                    const int32_t* seed_lens, int K, bool cumulative,
@@ -234,7 +276,7 @@ int encode_lanes(const uint8_t* text, const int32_t* tlen, int lanes,
   std::vector<int32_t> smem(lay.smem_bytes / 4 + 1);
   for (int lane = 0; lane < lanes; ++lane) {
     start_scratch(lay, scratch, init, seed_strs, seed_lens, K, false,
-                  x3::hash_slots(caps.D));
+                  x3::hash_slots(caps.D) + x3::ix_tree_words(caps.D));
     x3::LaneIO io;
     io.text = text + (long long)lane * tb;
     io.tb = tb;

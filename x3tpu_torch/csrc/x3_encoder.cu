@@ -18,6 +18,10 @@
 //   row and index model on separate warps at once, each with its mode's
 //   probability) and the end of the leader's chain; every warp derives
 //   the sweep from per-warp histograms without one.
+// - The index model is a Fenwick tree beside its plain freqs: a hit's
+//   interval is one round of at most log2(D) + 1 loads, a node a lane,
+//   where a sum reads every live entry (up to 11 000 at 1 MiB), and the
+//   event's gain is the next pass 1's, on the hash index's warp.
 // - Compares are word-wide: dictionary entries as eight u32 words, window
 //   positions four at a time with a byte compare of their first byte.
 // - The leader's chain is short: it picks the mode and pushes the AC
@@ -28,10 +32,10 @@
 //   char and length models' prefix sums and the literal bytes' duplicate
 //   corrections before the leader needs them.
 // - The lane's hot planes (text row, dictionary strings, lengths, ranks
-//   and index model, both hubs, the ctx1 row maps) live in the CTA's
-//   dynamic shared memory where the launch's plan puts them
-//   (x3tpu_torch/vm/driver.py smem_plan); the rest stays in the zeroed
-//   global scratch, reached by the same code through a pointer.  A
+//   and index model, both hubs, the ctx1 row maps, the index model's
+//   tree) live in the CTA's dynamic shared memory where the launch's plan
+//   puts them (x3tpu_torch/vm/driver.py smem_plan); the rest stays in the
+//   zeroed global scratch, reached by the same code through a pointer.  A
 //   seeded launch (the wrapper writes the dictionary seeds and, for a
 //   warm start, the warm context tables into the scratch) copies its
 //   planes into shared memory once, at the lane's start, and nothing per
@@ -80,7 +84,8 @@ encoder_kernel(const uint8_t* __restrict__ text, const int32_t* __restrict__ tle
   io.tlen = tlen[lane];
   io.seeds = seeds;
   io.warm = warm;
-  io.scr = scratch + lane * (lay.words + x3::hash_slots(lay.D));
+  io.scr = scratch + lane * (lay.words + x3::hash_slots(lay.D) +
+                             x3::ix_tree_words(lay.D));
   io.smem = planes;
   io.words = words + lane * caps.out_words;
   io.byte_len = byte_lens + lane;
@@ -145,6 +150,10 @@ void x3_fam_layout(int D, int pair_cap, int items1, int items0,
 // x3_scratch_words of the layout, at dictionary size D.
 long long x3_hash_slots(int D) { return x3::hash_slots(D); }
 
+// int32 words of K1's index model tree a lane's scratch holds after the
+// hash index, at dictionary size D.
+long long x3_ix_tree_words(int D) { return x3::ix_tree_words(D); }
+
 // K1's registers a thread, static shared memory and local (spill) bytes a
 // thread, as the loaded module has them, of its unwarmed instantiation
 // (warm 0) or its warm one: out [3].
@@ -160,10 +169,10 @@ int x3_encoder_info(int warm, int* out) {
 
 // Encode `lanes` blocks on `stream`.  All pointers are device memory:
 // text u8 [lanes, tb], tlen i32 [lanes], scratch i32 [lanes,
-// scratch_words + x3_hash_slots(D)] and words u32 [lanes, out_words]
-// zeroed, byte_lens i32 [lanes], counts i32 [lanes, 5], sizes f32
-// [lanes, 5], flags i32 [lanes].  smem_mask: the planes (x3_core.cuh
-// PL_*) that live in shared memory; seeds: K, the
+// scratch_words + x3_hash_slots(D) + x3_ix_tree_words(D)] and words u32
+// [lanes, out_words] zeroed, byte_lens i32 [lanes], counts i32 [lanes,
+// 5], sizes f32 [lanes, 5], flags i32 [lanes].  smem_mask: the planes
+// (x3_core.cuh PL_*) that live in shared memory; seeds: K, the
 // dictionary seeds the scratch holds (x3_core.cuh seed_dict, ix as
 // freqs), 0 for none; pair_n, hub0_n, hub1_n: the counts of the warm
 // tables the scratch holds (x3tpu_torch/vm/driver.py warm_scratch), 0

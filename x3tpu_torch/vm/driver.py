@@ -60,10 +60,11 @@ SMEM_STATIC = 16384
 # every plane stays global, where L1 holds the hot ones (with planes of
 # 189-206 KB in shared memory, L1 keeps about 28 KB of the SM's 256 KB)
 SMEM_DICT_MAX = 1024
-# the planes K1 may keep in shared memory, hottest first (x3_core.cuh PL_*)
+# the planes K1 may keep in shared memory, hottest first, then the index
+# model's tree (x3_core.cuh PL_*)
 SMEM_PLANES = ("text", "strs", "lens", "rank_of", "ix", "f1_hub_tags",
                "f1_hub_freqs", "f1_hub_pair", "f0_hub_tags", "f0_hub_freqs",
-               "f1_n", "f1_promo")
+               "f1_n", "f1_promo", "ix_tree")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +87,7 @@ def smem_plan(params: X3Params, caps: CodecCaps) -> SmemPlan:
     """The planes of a launch that go to shared memory: each in order, at a
     16-byte boundary, while it fits in what a block may have beside K1's
     static part (x3_core.cuh place_smem packs the same planes the same
-    way).  At ``caps_for_block(16 KiB)`` every plane fits (99 392 bytes).
+    way).  At ``caps_for_block(16 KiB)`` every plane fits (103 504 bytes).
     Above SMEM_DICT_MAX entries the plan is empty: all-global measured
     2-4 % faster at dict 2048-8192 and 13-34 % faster at dict 6144-24576
     (32 KiB to 1 MiB blocks, ``tools/kernel_ab.py --plan``), and equal at
@@ -97,6 +98,7 @@ def smem_plan(params: X3Params, caps: CodecCaps) -> SmemPlan:
     sizes = dict.fromkeys(SMEM_PLANES, 4 * d)  # int32 planes of D entries
     sizes["text"] = codec.text_bytes(params, caps)
     sizes["strs"] = d * MAX_MATCH_LEN
+    sizes["ix_tree"] = 4 * ix_tree_words(caps)
     at, offsets = 0, {}
     for name in SMEM_PLANES:
         size = -(-sizes[name] // 16) * 16
@@ -178,6 +180,8 @@ def _bind_encoder(lib: ctypes.CDLL, phases: bool = False) -> None:
     lib.x3_encoder_info.argtypes = [i, p]
     lib.x3_hash_slots.restype = ll
     lib.x3_hash_slots.argtypes = [i]
+    lib.x3_ix_tree_words.restype = ll
+    lib.x3_ix_tree_words.argtypes = [i]
 
 
 def _bind_decoder(lib: ctypes.CDLL, phases: bool = False) -> None:
@@ -278,16 +282,23 @@ def hash_slots(caps: CodecCaps) -> int:
     return 1 << (2 * caps.dict_cap - 1).bit_length()
 
 
+def ix_tree_words(caps: CodecCaps) -> int:
+    """int32 words of K1's index model as a Fenwick tree, which a lane's
+    scratch holds after :func:`hash_slots` (x3_core.cuh ix_tree_words; K2's
+    scratch has none): a node a rank position, and the unused node 0."""
+    return caps.dict_cap + 1
+
+
 # per-lane bytes of a launch's small outputs: lengths, counts, sizes, flags
 _LANE_SMALL = 4 + 20 + 20 + 4
 
 
 def encoder_lane_bytes(params: X3Params, caps: CodecCaps) -> int:
     """Device bytes one lane of a K1 launch takes: its zeroed scratch (the
-    hash index's plane included), its text row, its output words (int32
-    from the kernel, then the int64 copy and the masked one the wrapper
-    returns) and its small outputs."""
-    return (4 * (scratch_words(caps) + hash_slots(caps))
+    hash index's and the index model tree's planes included), its text
+    row, its output words (int32 from the kernel, then the int64 copy and
+    the masked one the wrapper returns) and its small outputs."""
+    return (4 * (scratch_words(caps) + hash_slots(caps) + ix_tree_words(caps))
             + codec.text_bytes(params, caps) + 20 * caps.out_words
             + _LANE_SMALL + 4)
 
@@ -432,15 +443,18 @@ def _kernel_layout(lib: ctypes.CDLL, caps: CodecCaps):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_hash_slots(lib: ctypes.CDLL, caps: CodecCaps) -> int:
-    """K1's hash index words a lane (x3_hash_slots), which must be
-    :func:`hash_slots`'s."""
+def _kernel_k1_words(lib: ctypes.CDLL, caps: CodecCaps) -> int:
+    """K1's words a lane past the layout's: its hash index
+    (x3_hash_slots) and its index model tree (x3_ix_tree_words), which
+    must be :func:`hash_slots`' and :func:`ix_tree_words`'."""
     slots = lib.x3_hash_slots(caps.dict_cap)
-    if slots != hash_slots(caps):
+    tree = lib.x3_ix_tree_words(caps.dict_cap)
+    if (slots, tree) != (hash_slots(caps), ix_tree_words(caps)):
         raise RuntimeError(
-            f"K1's hash index ({slots} slots) is not driver.hash_slots' "
-            f"({hash_slots(caps)}) at {caps}")
-    return slots
+            f"K1's hash index and tree ({slots}, {tree} words) are not "
+            f"driver.hash_slots' and ix_tree_words' ({hash_slots(caps)}, "
+            f"{ix_tree_words(caps)}) at {caps}")
+    return slots + tree
 
 
 @functools.lru_cache(maxsize=None)
@@ -461,7 +475,7 @@ def _seeded_scratch(lanes: int, caps: CodecCaps, dev, seeds,
     ``warm``); the layout is the kernel library ``lib``'s
     (:func:`kernel_layout`, and for a warm start K1's family layout
     query, which must equal :func:`layout`), each lane ``extra`` words
-    longer (K1's hash index)."""
+    longer (K1's hash index and index model tree)."""
     k = codec.check_seeds(seeds, caps, warm)
     lib = lib or _load()["encoder"]
     words, offsets = kernel_layout(caps, lib)
@@ -578,7 +592,7 @@ def launch_encode(text: torch.Tensor, tlen: torch.Tensor, params: X3Params,
         with torch.cuda.stream(stream):
             scratch, k, warm_n = _seeded_scratch(
                 lanes, caps, dev, seeds, False, lib, warm,
-                _kernel_hash_slots(lib, caps))
+                _kernel_k1_words(lib, caps))
             words = torch.zeros((lanes, caps.out_words), dtype=torch.int32,
                                 device=dev)
             byte_lens = torch.empty((lanes,), dtype=torch.int32, device=dev)
